@@ -1,0 +1,149 @@
+"""Caption decoder: temporal-attention LSTM with gated visual/syntax fusion.
+
+Counterpart of `controllable_xgating_tpu/models/decoder.py`. Each step:
+additive attention over the encoder memory gives a visual context; a
+sigmoid gate over [h ; emb(w)] mixes it with the projected POS feature
+psi; the LSTM cell consumes [emb(w) ; guide] and projects to vocab logits.
+h and c are carried in f32.
+
+The experiments/ `vocab_q` hook of the JAX `decode_step` is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from controllable_xgating_torch.ops.attention import (
+    AttentionWeights,
+    additive_attention,
+    init_attention,
+    precompute_keys,
+)
+from controllable_xgating_torch.ops.lstm import LSTMWeights, init_lstm, lstm_cell
+from controllable_xgating_torch.ops.params import normal, param, uniform_fan_in
+from controllable_xgating_torch.ops.precision import compute_dtype, mm
+
+
+class DecoderParams(nn.Module):
+    def __init__(self, embed, init_h, init_c, attn: AttentionWeights, w_ctx, w_psi,
+                 w_gate, b_gate, lstm: LSTMWeights, w_out, b_out, use_psi: bool = True):
+        super().__init__()
+        self.embed = param(embed)    # [V, E]
+        self.init_h = param(init_h)  # [He, Hd]
+        self.init_c = param(init_c)  # [He, Hd]
+        self.attn = attn
+        self.w_ctx = param(w_ctx)    # [He, G] visual context -> guide space
+        self.w_psi = param(w_psi)    # [P, G]  psi -> guide space
+        self.w_gate = param(w_gate)  # [Hd + E, G]
+        self.b_gate = param(b_gate)  # [G]
+        self.lstm = lstm             # input dim E + G, hidden Hd
+        self.w_out = param(w_out)    # [Hd, V]
+        self.b_out = param(b_out)    # [V]
+        # paper §4 ablation: False zeroes psi in make_decode_context
+        self.use_psi = use_psi
+
+    @property
+    def vocab_size(self) -> int:
+        return self.w_out.shape[1]
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.lstm.hidden_dim
+
+
+def init_decoder(
+    gen: torch.Generator, vocab: int, enc_dim: int, hidden: int, embed_dim: int,
+    attn_dim: int, psi_dim: int, guide_dim: Optional[int] = None, use_psi: bool = True,
+) -> DecoderParams:
+    guide_dim = guide_dim or hidden
+    return DecoderParams(
+        embed=normal(gen, (vocab, embed_dim), 0.1),
+        init_h=uniform_fan_in(gen, (enc_dim, hidden)),
+        init_c=uniform_fan_in(gen, (enc_dim, hidden)),
+        attn=init_attention(gen, hidden, enc_dim, attn_dim),
+        w_ctx=uniform_fan_in(gen, (enc_dim, guide_dim)),
+        w_psi=uniform_fan_in(gen, (psi_dim, guide_dim)),
+        w_gate=uniform_fan_in(gen, (hidden + embed_dim, guide_dim)),
+        b_gate=torch.zeros(guide_dim),
+        lstm=init_lstm(gen, embed_dim + guide_dim, hidden),
+        w_out=uniform_fan_in(gen, (hidden, vocab)),
+        b_out=torch.zeros(vocab),
+        use_psi=use_psi,
+    )
+
+
+class DecodeContext(NamedTuple):
+    """Per-sequence constants reused by every decode step. `enc_proj` is the
+    encoder memory already pushed through `w_ctx` (attention is linear in
+    its values, so projecting once per sequence is the same arithmetic)."""
+
+    enc_proj: torch.Tensor              # [B, T, G]
+    keys: torch.Tensor                  # [B, T, A]
+    frame_mask: Optional[torch.Tensor]  # [B, T]
+    psi_g: torch.Tensor                 # [B, G]
+
+
+def make_decode_context(
+    params: DecoderParams, enc_out: torch.Tensor, psi: torch.Tensor,
+    frame_mask: Optional[torch.Tensor] = None,
+) -> DecodeContext:
+    """The context tensors are re-read every step, so they are stored in the
+    compute dtype (half the bytes under bf16)."""
+    cdt = compute_dtype()
+    if not params.use_psi:
+        psi = psi * 0
+    return DecodeContext(
+        enc_proj=mm(enc_out, params.w_ctx).to(cdt),
+        keys=precompute_keys(params.attn, enc_out).to(cdt),
+        frame_mask=frame_mask,
+        psi_g=mm(psi, params.w_psi).to(cdt),
+    )
+
+
+def init_decoder_state(params: DecoderParams, summary: torch.Tensor):
+    h = torch.tanh(mm(summary, params.init_h))
+    c = torch.tanh(mm(summary, params.init_c))
+    return h.to(summary.dtype), c.to(summary.dtype)
+
+
+def decode_step(
+    params: DecoderParams,
+    ctx: DecodeContext,
+    token: torch.Tensor,  # [B] previous word
+    h: torch.Tensor,      # [B, Hd]
+    c: torch.Tensor,      # [B, Hd]
+    fused: Optional[bool] = None,
+    return_hidden: bool = False,
+    kernel_weights=None,
+):
+    """One decode step. Returns (logits [B, V], h', c', alpha [B, T]).
+
+    `fused=True` routes attention + gate + cell through the attn_lstm
+    kernel wrapper; a decode loop passes that wrapper's weights, cast once
+    by `attn_lstm_weights`, as `kernel_weights`. `return_hidden=True` skips
+    the vocab projection and returns h' in the logits slot, for a caller
+    that fuses the projection into its own tail (beam's top-K kernel)."""
+
+    def project(h_out):
+        if return_hidden:
+            return h_out
+        return mm(h_out, params.w_out) + params.b_out.float()
+
+    e = params.embed[token]
+    if fused:
+        from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_step_kernel
+
+        h_new, c_new, alpha = attn_lstm_step_kernel(
+            params, e, h, c, ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask, kernel_weights
+        )
+        return project(h_new), h_new, c_new, alpha
+    vis_g, alpha = additive_attention(params.attn, h, ctx.enc_proj, ctx.keys, ctx.frame_mask)
+    vis_g = vis_g.float()
+    gate = torch.sigmoid(mm(torch.cat([h, e], -1), params.w_gate) + params.b_gate.float())
+    guide = gate * vis_g + (1.0 - gate) * ctx.psi_g.float()
+    x = torch.cat([e, guide.to(e.dtype)], dim=-1)
+    h_new, c_new = lstm_cell(params.lstm, x, h, c)
+    return project(h_new), h_new, c_new, alpha
