@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning path once on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning and XE-training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
 Phases, each fatal on failure:
   1. refuse to run without a CUDA device; print the card's name and
      power limit;
-  2. build the four CUDA kernels of the path from `csrc/`;
-  3. hold every kernel against its plain PyTorch version at the shapes the
-     path gives it (MSR-VTT width: 256 videos x 26 frames, beam 5), under
-     the f32 policy (rtol 1e-4, atol 1e-5) and the bf16 policy (a bound
-     per kernel, `BF16_TOL`), and time both with CUDA events;
+  2. build the CUDA kernels of both paths from `csrc/`;
+  3. hold every caption kernel against its plain PyTorch version at the
+     shapes the path gives it (MSR-VTT width: 256 videos x 26 frames,
+     beam 5), under the f32 policy (rtol 1e-4, atol 1e-5) and the bf16
+     policy (a bound per kernel, `BF16_TOL`), and time both with CUDA
+     events;
   4. caption 256 seeded videos with random seeded weights under the bf16
      policy through `evaluate_split` with `make_beam_caption_fn` (beam 5),
      then with `make_greedy_caption_fn`; every kernel of each path must
@@ -18,6 +20,19 @@ Phases, each fatal on failure:
   5. under the f32 policy, the kernel path and the plain path
      (`set_fused_kernels(False)`) must give the same caption for >= 98% of
      the videos, beam and greedy;
+  6. training at MSR-VTT width (batch 64 x 5 captions, vocab 10000, 35 POS
+     tags) on seeded features and captions through `TrainBatchIterator`:
+     the cross-entropy kernels (K5, forward and backward) against their
+     plain version at the step's shape [8640, 10000] (rtol 1e-4; atol
+     1e-5 forward, 1e-6 x max |dx| backward, at N(0, 1) cotangents and at
+     the loss's), timed beside `F.cross_entropy`; 1 + 5 joint-stage steps
+     under the bf16 policy at dropout 0.5 through the kernels (train
+     videos/s, one forward and one backward launch per step); one f32 step
+     with label smoothing 0.1 through the kernels and through the plain
+     path from the same state (loss and grad norm within rtol 1e-4, the
+     Adam first moments within a relative norm of 1e-5, parameters within
+     atol 1e-5); ten steps on one batch at dropout 0,
+     whose loss must fall;
 then print one JSON line of kernel results and, last, one JSON line
 `{"ok": true, "device": {...}}`.
 """
@@ -46,7 +61,20 @@ BF16_TOL = {
     "attn_lstm": dict(rtol=0.0, atol=1e-4),
     "topk_tail": dict(rtol=0.0, atol=1e-5),
 }
+# K5's dx is mostly ~1/V (1e-4 at V = 10000) and below: its atol is this
+# share of max |dx|, with F32_TOL's rtol; a backward kernel that scales
+# the g_mean / V term by 1/2 fails it
+XENT_DX_ATOL = 1e-6
 AGREE_MIN = 0.98
+TRAIN_VIDEOS = 128  # two batches of 64 per epoch
+# the card's peaks for the kernels' bounds (H100 SXM data sheet, dense):
+# HBM bytes/s, bf16 tensor-core and f32 non-tensor-core operations/s
+HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 989e12, 67e12
+PATH_KERNELS = {
+    "beam-5": ("xgate", "pos_lstm", "attn_lstm", "topk_tail"),
+    "greedy": ("xgate", "pos_lstm", "attn_lstm"),
+    "xe-train": ("xent_fwd", "xent_bwd"),
+}
 
 
 def fail(msg: str) -> None:
@@ -194,6 +222,252 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
     return out
 
 
+def bound(nbytes: float, ops: float, ops_s: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes moved (each input read once, each output written once) over HBM
+    bandwidth and the operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def caption_bounds(params) -> dict:
+    """Bounds of the caption kernels at the shapes `kernel_cases` gives
+    them, bf16 policy: operands in bf16 (2 bytes), biases, cell state,
+    masks and f32 results in 4, products on the tensor cores."""
+    c = 2
+    enc, pos, dec = params.encoder, params.pos, params.decoder
+    da, h = enc.xgate.wa.shape
+    dm = enc.xgate.wm.shape[0]
+    rows = B * T
+    e_p, hp = pos.embed.shape[1], pos.lstm.hidden_dim
+    r, hd, e, a, g, v = B * K, dec.hidden_dim, dec.embed.shape[1], dec.attn.wq.shape[1], \
+        dec.w_psi.shape[1], dec.vocab_size
+    return {
+        # ea, em, two gates and the split Wf: 2 R H (Da + Dm + 4H)
+        "xgate": bound(c * (rows * (da + dm + h) + h * (da + dm + 4 * h)) + 4 * 5 * h,
+                       2 * rows * h * (da + dm + 4 * h), BF16_OPS_S),
+        # gates = e @ wih_e + s_gates + h @ whh + b, then the cell
+        "pos_lstm": bound(c * (B * (e_p + hp) + (e_p + hp) * 4 * hp)
+                          + 4 * (B * 4 * hp + 4 * hp + 3 * B * hp),
+                          2 * B * (e_p + hp) * 4 * hp, BF16_OPS_S),
+        # keys and projected memory [R, T, A|G] dominate the bytes
+        "attn_lstm": bound(c * (r * (hd + e + T * (a + g) + 2 * g)
+                                + hd * a + a + (hd + e) * g + (e + g + hd) * 4 * hd)
+                           + 4 * (r * hd + 2 * r * T + a + g + 4 * hd + 2 * r * hd),
+                           2 * r * (hd * a + (hd + e) * g + (e + g + hd) * 4 * hd)
+                           + 2 * r * T * (a + g), BF16_OPS_S),
+        # h @ w_out over the whole vocab; K values, ids and the lse out
+        "topk_tail": bound(c * (r * hd + hd * v) + 4 * v + 4 * r * (2 * K + 1),
+                           2 * r * hd * v, BF16_OPS_S),
+    }
+
+
+def xent_bounds(n: int, v: int) -> dict:
+    """K5 at [n, v] f32 with int64 targets: the forward reads the logits
+    once and writes three [n] statistics; the backward reads the logits,
+    targets, lse and three cotangents and writes dx. About four f32
+    operations per element each (max or subtract, exp, add or fma)."""
+    return {
+        "xent_fwd": bound(4 * n * v + 8 * n + 12 * n, 4 * n * v, F32_OPS_S),
+        "xent_bwd": bound(8 * n * v + 8 * n + 16 * n, 4 * n * v, F32_OPS_S),
+    }
+
+
+def make_train_corpus(cfg, seed: int):
+    """TRAIN_VIDEOS seeded videos with `seqs_per_video` captions and POS
+    tag sequences each: BOS, 5-25 random ids, EOS, PAD to MAX_LEN."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, s = TRAIN_VIDEOS, cfg.data.seqs_per_video
+    app = rng.normal(size=(n, T, cfg.model.app_dim)).astype(np.float32)
+    mot = rng.normal(size=(n, T, cfg.model.motion_dim)).astype(np.float32)
+    counts = np.where(rng.random(n) < 0.5, T, rng.integers(T // 2, T, n))
+    lengths = rng.integers(6, MAX_LEN - 1, (n, s))
+    col = np.arange(MAX_LEN)[None, None, :]
+    words = lengths[..., None]
+    caps = np.where(col <= words, rng.integers(4, VOCAB, (n, s, MAX_LEN)), 0)
+    pos = np.where(col <= words, rng.integers(4, POS_VOCAB, (n, s, MAX_LEN)), 0)
+    for arr in (caps, pos):
+        arr[..., 0] = 1  # BOS
+        np.put_along_axis(arr, words, 2, axis=-1)  # EOS after the words
+    ncaps = rng.integers(s // 2, s + 1, n)
+    return NumpyStore(app, mot, counts), caps.astype(np.int32), pos.astype(np.int32), ncaps
+
+
+def check_xent(dev, n: int, v: int, smoothing: float = 0.1) -> dict:
+    """K5 forward and backward against the plain version at [n, v] f32,
+    with PAD targets on a tenth of the rows. The backward is held at two
+    sets of cotangents: N(0, 1) draws, which give each term of dx its own
+    scale, and those of the label-smoothed masked loss, where most of dx
+    is ~1/V; its atol is scaled to the output (`XENT_DX_ATOL` x max |dx|).
+    Times the kernels, the plain version and `F.cross_entropy` (forward,
+    then its backward alone) at the loss's cotangents. Returns
+    {name: (max_abs_err, ms, plain_ms, library_ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from controllable_xgating_torch.data.vocab import PAD
+    from controllable_xgating_torch.ops.kernels.xent import (
+        xent_bwd_kernel,
+        xent_fwd_kernel,
+        xent_row_stats_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(n, v, generator=g, device=dev) * 3.0
+    t = torch.randint(4, v, (n,), generator=g, device=dev)
+    t[torch.rand(n, generator=g, device=dev) < 0.1] = PAD
+    mask = (t != PAD).float()
+    # d/d(lse, tgt, mean) of sum(mask * ((1-eps)(lse - tgt) + eps (lse - mean)))
+    cot = (mask, -(1.0 - smoothing) * mask, -smoothing * mask)
+
+    def weighted(stats, cotangents=cot):
+        return sum((w * s).sum() for w, s in zip(cotangents, stats))
+
+    out = {}
+    with torch.no_grad():
+        got, ref = xent_fwd_kernel(x, t), xent_row_stats_plain(x, t)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("lse", "x[t]", "mean"), got, ref):
+        err = max(err, (a - b).abs().max().item())
+        if not torch.isfinite(a).all() or not torch.allclose(a, b, **F32_TOL):
+            fail(f"xent_fwd: {name} max |kernel - plain| = {(a - b).abs().max().item():.3e}")
+    with torch.no_grad():
+        lib_loss = F.cross_entropy(x, t, ignore_index=PAD, reduction="sum",
+                                   label_smoothing=smoothing)
+    print(f"kernel xent_fwd: F.cross_entropy {lib_loss.item():.6e} vs the statistics' loss "
+          f"{weighted(got).item():.6e}")
+    with torch.no_grad():
+        out["xent_fwd"] = (err, cuda_ms(lambda: xent_fwd_kernel(x, t)),
+                           cuda_ms(lambda: xent_row_stats_plain(x, t)),
+                           cuda_ms(lambda: F.cross_entropy(x, t, ignore_index=PAD, reduction="sum",
+                                                           label_smoothing=smoothing)))
+    lse = got[0]
+    xr = x.detach().requires_grad_(True)
+    plain_stats = xent_row_stats_plain(xr, t)
+    draws = tuple(torch.randn(n, generator=g, device=dev) for _ in range(3))
+    err = 0.0
+    for label, c in (("N(0,1) cotangents", draws), ("the loss's cotangents", cot)):
+        # the plain version's own lse, so that both get the same inputs
+        dx = xent_bwd_kernel(x, t, plain_stats[0].detach(), *c)
+        (ref_dx,) = torch.autograd.grad(weighted(plain_stats, c), xr, retain_graph=True)
+        tol = dict(rtol=F32_TOL["rtol"], atol=XENT_DX_ATOL * ref_dx.abs().max().item())
+        e = (dx - ref_dx).abs().max().item()
+        print(f"kernel xent_bwd [{label}]: max |kernel - plain| {e:.3e}, median |dx| "
+              f"{ref_dx.abs().median().item():.3e}, tolerance {tol}")
+        if not torch.isfinite(dx).all() or not torch.allclose(dx, ref_dx, **tol):
+            fail(f"xent_bwd [{label}]: max |kernel - plain| = {e:.3e} outside {tol}")
+        err = max(err, e)
+    plain_loss = weighted(plain_stats)
+    lib = F.cross_entropy(xr, t, ignore_index=PAD, reduction="sum", label_smoothing=smoothing)
+    out["xent_bwd"] = (err, cuda_ms(lambda: xent_bwd_kernel(x, t, lse, *cot)),
+                       cuda_ms(lambda: torch.autograd.grad(plain_loss, xr, retain_graph=True)),
+                       cuda_ms(lambda: torch.autograd.grad(lib, xr, retain_graph=True)))
+    for name, (e, ms, plain_ms, lib_ms) in out.items():
+        print(f"kernel {name} [float32, {n}x{v}]: max_abs_err {e:.3e}  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  F.cross_entropy {lib_ms:.4f} ms")
+    return out
+
+
+def train_phase(cfg, dev) -> dict:
+    """The XE-training path; returns the xent launch counts of the bf16
+    main-path run."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.data.loader import TrainBatchIterator
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.ops.precision import set_compute_dtype
+    from controllable_xgating_torch.train.state import create_train_state, make_optimizer
+    from controllable_xgating_torch.train.xe import make_xe_train_step
+
+    store, caps, pos, ncaps = make_train_corpus(cfg, seed=1)
+    bs, k = cfg.data.batch_size, cfg.data.caps_per_video_train
+    batches = iter(TrainBatchIterator(store, caps, pos, ncaps, np.arange(TRAIN_VIDEOS), bs, k,
+                                      seed=0))
+    spe = TRAIN_VIDEOS // bs
+
+    def fresh(c):
+        state = create_train_state(init_captioner(c, seed=0, device=dev), c)
+        return state, make_xe_train_step(make_optimizer(c, spe, "joint"), c, "joint")
+
+    # the main path: bf16 policy, kernels on, dropout 0.5; 1 warm-up + 5 timed steps
+    set_compute_dtype("bfloat16")
+    set_fused_kernels(None)
+    state, step = fresh(cfg)
+    kernels.reset_launch_counts()
+    state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"xe-train launches {counts}")
+    if any(counts[n] != 6 for n in PATH_KERNELS["xe-train"]):
+        fail(f"xe-train: the xent kernels did not launch once per step in 6 steps: {counts}")
+    host = {key: float(val) for key, val in m.items()}
+    if not all(math.isfinite(val) for val in host.values()):
+        fail(f"xe-train: metrics {host}")
+    print(f"xe-train [bfloat16, joint, dropout {cfg.model.dropout}]: {5 * bs / dt:.1f} videos/s, "
+          f"{5 * bs * k / dt:.1f} sequences/s ({dt / 5 * 1e3:.1f} ms/step over 5 steps), "
+          f"last step {json.dumps(host)}")
+
+    # one f32 step from the same state, batch and generator seed, kernels vs
+    # plain path, with label smoothing 0.1 so that every statistic of K5
+    # carries a gradient. Adam's first moment after one step is 0.1 x the
+    # clipped gradient: all parameters' together are held to the plain
+    # path's within a relative norm of 1e-5 (the updated parameters move by
+    # ~lr x sign and would show only the gradient's sign; a parameter whose
+    # gradient nearly cancels differs by ~1e-4 of its own norm from sum
+    # order alone)
+    set_compute_dtype("float32")
+    batch = next(batches)
+    c_ls = cfg.replace_flat({"train.label_smoothing": 0.1})
+    res = {}
+    for fused in (None, False):
+        set_fused_kernels(fused)
+        state, step = fresh(c_ls)
+        state, m = step(state, batch)
+        opt = state.opt_state
+        res[fused] = ({key: val.item() for key, val in m.items()},
+                      [p.detach().clone() for p in state.params.parameters()],
+                      [opt.state[p]["exp_avg"].clone() for p in state.params.parameters()])
+        del state, opt
+    set_fused_kernels(None)
+    (mk, pk, gk), (mp, pp, gp) = res[None], res[False]
+    for key in ("loss", "grad_norm"):
+        if not math.isclose(mk[key], mp[key], rel_tol=1e-4):
+            fail(f"xe-train f32 {key}: kernels {mk[key]} vs plain {mp[key]}")
+    perr = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    flat = lambda ms: torch.cat([m.flatten() for m in ms])
+    gerr = ((flat(gk) - flat(gp)).norm() / flat(gp).norm()).item()
+    print(f"xe-train [float32, label smoothing 0.1] kernels vs plain path: loss {mk['loss']:.7g} "
+          f"vs {mp['loss']:.7g}, grad_norm {mk['grad_norm']:.7g} vs {mp['grad_norm']:.7g}, "
+          f"relative norm of the Adam first-moment difference {gerr:.3e}, "
+          f"max |param difference| after the update {perr:.3e}")
+    if gerr > 1e-5:
+        fail(f"xe-train f32: the gradients differ by a relative norm {gerr:.3e} > 1e-5")
+    if perr > 1e-5:
+        fail(f"xe-train f32: updated parameters differ by {perr:.3e} > 1e-5")
+
+    # ten steps on one fixed batch at dropout 0: the loss must fall
+    set_compute_dtype("bfloat16")
+    c0 = cfg.replace_flat({"model.dropout": 0.0})
+    state, step = fresh(c0)
+    losses = [step(state, batch)[1]["loss"] for _ in range(10)]
+    losses = [float(x) for x in losses]
+    print(f"xe-train [bfloat16, dropout 0] ten steps on one batch: loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail("xe-train: ten steps on one batch did not lower the loss")
+    return counts
+
+
 def caption_fn(beam: bool, fused):
     from controllable_xgating_torch.infer.beam import make_beam_caption_fn
     from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
@@ -231,12 +505,12 @@ def main() -> None:
     print(f"built {os.path.basename(lib)} in {time.time() - t0:.1f} s")
     with open(os.path.join(build.build_dir(), "build.log")) as f:
         for line in f:
-            if "registers" in line or "bytes stack frame" in line:
+            if "entry function" in line or "registers" in line or "bytes stack frame" in line:
                 print("ptxas:", line.strip())
 
     cfg = load_config(os.path.join(HERE, "configs", "msrvtt.json"),
                       {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB})
-    params = init_captioner(cfg, seed=0).to(dev)
+    params = init_captioner(cfg, seed=0, device=dev)
     store, labels, info = make_corpus(cfg, seed=0)
 
     set_compute_dtype("float32")
@@ -259,8 +533,7 @@ def main() -> None:
         torch.cuda.synchronize()
         counts[label] = kernels.launch_counts()
         print(f"{label} launches {counts[label]}")
-        need = kernels.WRAPPERS if beam else ("xgate", "pos_lstm", "attn_lstm")
-        if not all(counts[label][n] for n in need):
+        if not all(counts[label][n] for n in PATH_KERNELS[label]):
             fail(f"a kernel of the {label} path never launched: {counts[label]}")
         if len(caps) != B or not all(math.isfinite(v) for v in metrics.values()):
             fail(f"{label}: {len(caps)} captions, metrics {metrics}")
@@ -293,21 +566,36 @@ def main() -> None:
             print(f"{label} caption agreement kernels vs plain [{policy}]: {agree:.4f}")
             if policy == "float32" and agree < AGREE_MIN:
                 fail(f"{label} f32 caption agreement {agree:.4f} < {AGREE_MIN}")
-    if any(m in sys.modules for m in ("jax", "flax", "orbax", "h5py")):
-        fail("the port pulled in jax/flax/orbax/h5py")
+
+    # the XE-training path: K5 against its plain version at the step's
+    # shape, then the train steps
+    n_rows = cfg.data.batch_size * cfg.data.caps_per_video_train * (MAX_LEN - 1)
+    xent = check_xent(dev, n_rows, VOCAB)
+    counts["xe-train"] = train_phase(cfg, dev)
+
+    banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu")
+    pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
+    if pulled:
+        fail(f"the port pulled in {pulled}")
 
     src = "controllable_xgating_torch/csrc/"
-    replaces = {
-        "xgate": "controllable_xgating_tpu/ops/pallas/xgate.py:52",
-        "pos_lstm": "controllable_xgating_tpu/ops/pallas/pos_lstm.py:35",
-        "attn_lstm": "controllable_xgating_tpu/ops/pallas/attn_lstm.py:43",
-        "topk_tail": "controllable_xgating_tpu/ops/pallas/topk_tail.py:66",
-    }
+    pallas = "controllable_xgating_tpu/ops/pallas/"
+    kernel_rows = [  # name, source, the Pallas kernel it replaces, path, results
+        ("xgate", "xgate.cu", "xgate.py:52", "beam-5", (*results["xgate"], None)),
+        ("pos_lstm", "pos_lstm.cu", "pos_lstm.py:35", "beam-5", (*results["pos_lstm"], None)),
+        ("attn_lstm", "attn_lstm.cu", "attn_lstm.py:43", "beam-5",
+         (*results["attn_lstm"], None)),
+        ("topk_tail", "topk_tail.cu", "topk_tail.py:66", "beam-5",
+         (*results["topk_tail"], None)),
+        ("xent_fwd", "xent.cu", "xent.py:49", "xe-train", xent["xent_fwd"]),
+        ("xent_bwd", "xent.cu", "xent.py:60", "xe-train", xent["xent_bwd"]),
+    ]
+    bounds = {**caption_bounds(params), **xent_bounds(n_rows, VOCAB)}
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": replaces[n],
-         "launches": counts["beam-5"][n], "max_abs_err": results[n][0], "ms": results[n][1],
-         "plain_ms": results[n][2]}
-        for n in replaces
+        {"name": n, "route": "cuda", "source": src + f, "replaces": pallas + r,
+         "launches": counts[path][n], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
+         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": res[3]}
+        for n, f, r, path, res in kernel_rows
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

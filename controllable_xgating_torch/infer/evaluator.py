@@ -3,7 +3,7 @@
 Counterpart of `make_greedy_caption_fn` and `evaluate_split` in
 `controllable_xgating_tpu/infer/evaluator.py` (without the device mesh).
 Token ids leave the device once per batch; strings are joined through the
-vocab and scored by the JAX package's framework-free metric harness.
+vocab and scored by the port's copy of the metric harness (`metrics/`).
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from controllable_xgating_tpu.metrics.harness import gts_from_label_array, language_eval
 from controllable_xgating_torch.data.loader import eval_batches
 from controllable_xgating_torch.infer.greedy import greedy_decode
+from controllable_xgating_torch.metrics.harness import gts_from_label_array, language_eval
 from controllable_xgating_torch.models.captioner import CaptionerParams, encode_for_inference
 
 

@@ -14,6 +14,7 @@ from torch import nn
 
 from controllable_xgating_torch.models.decoder import (
     DecoderParams,
+    decoder_forward,
     init_decoder,
     make_decode_context,
 )
@@ -34,10 +35,11 @@ class CaptionerParams(nn.Module):
         self.decoder = decoder
 
 
-def init_captioner(cfg, seed: int = 0) -> CaptionerParams:
+def init_captioner(cfg, seed: int = 0, device="cuda") -> CaptionerParams:
     """Random f32 parameters with the JAX package's shapes and
-    distributions, drawn on the CPU from a seeded `torch.Generator` (the
-    same seed gives the same weights on any device; move them with `.to`).
+    distributions, drawn on the CPU from a seeded `torch.Generator` (so the
+    same seed gives the same weights on any device), then moved to
+    `device`: the card unless the caller asks for the CPU.
     `cfg` is a `ModelConfig` or a `Config`."""
     cfg = getattr(cfg, "model", cfg)
     if cfg.vocab_size <= 0 or cfg.pos_vocab_size <= 0:
@@ -55,7 +57,28 @@ def init_captioner(cfg, seed: int = 0) -> CaptionerParams:
         gen, cfg.vocab_size, enc_dim, cfg.hidden_dim * cfg.decoder_hidden_mult,
         cfg.embed_dim, cfg.attn_dim, cfg.pos_embed_dim, use_psi=cfg.pos_guidance,
     )
-    return CaptionerParams(encoder, pos, decoder)
+    return CaptionerParams(encoder, pos, decoder).to(device)
+
+
+def xe_logits(
+    params: CaptionerParams,
+    app: torch.Tensor,       # [B, T, Da]
+    motion: torch.Tensor,    # [B, T, Dm]
+    captions: torch.Tensor,  # [B, L]
+    pos_tags: torch.Tensor,  # [B, Lp] ground-truth tags (teacher psi)
+    frame_mask: Optional[torch.Tensor] = None,
+    gen: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
+):
+    """Teacher-forced caption + POS logits for joint or staged XE training:
+    (cap_logits [B, L-1, V], pos_logits [B, Lp-1, Vp]). Dropout masks are
+    drawn from `gen`, the encoder's first."""
+    enc_out, summary = encode(params.encoder, app, motion, frame_mask, gen=gen,
+                              dropout_rate=dropout_rate)
+    pos_logits, psi = pos_forward(params.pos, summary, pos_tags)
+    ctx = make_decode_context(params.decoder, enc_out, psi, frame_mask)
+    cap_logits = decoder_forward(params.decoder, ctx, summary, captions, gen, dropout_rate)
+    return cap_logits, pos_logits
 
 
 def encode_for_inference(

@@ -4,7 +4,8 @@ Counterpart of `controllable_xgating_tpu/models/decoder.py`. Each step:
 additive attention over the encoder memory gives a visual context; a
 sigmoid gate over [h ; emb(w)] mixes it with the projected POS feature
 psi; the LSTM cell consumes [emb(w) ; guide] and projects to vocab logits.
-h and c are carried in f32.
+h and c are carried in f32. `decoder_forward` is the teacher-forced pass
+of XE training.
 
 The experiments/ `vocab_q` hook of the JAX `decode_step` is not ported.
 """
@@ -15,7 +16,9 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from controllable_xgating_torch.ops import dropout
 from controllable_xgating_torch.ops.attention import (
     AttentionWeights,
     additive_attention,
@@ -140,10 +143,72 @@ def decode_step(
             params, e, h, c, ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask, kernel_weights
         )
         return project(h_new), h_new, c_new, alpha
+    h_new, c_new, alpha = _attend_gate_cell(params, ctx, e, h, c)
+    return project(h_new), h_new, c_new, alpha
+
+
+def _attend_gate_cell(params: DecoderParams, ctx: DecodeContext, e, h, c):
+    """Attention, syntax gate and LSTM cell of one step on the embedded
+    word e: (h', c', alpha). The plain path of `decode_step`, and the step
+    of `decoder_forward`."""
     vis_g, alpha = additive_attention(params.attn, h, ctx.enc_proj, ctx.keys, ctx.frame_mask)
     vis_g = vis_g.float()
     gate = torch.sigmoid(mm(torch.cat([h, e], -1), params.w_gate) + params.b_gate.float())
     guide = gate * vis_g + (1.0 - gate) * ctx.psi_g.float()
     x = torch.cat([e, guide.to(e.dtype)], dim=-1)
     h_new, c_new = lstm_cell(params.lstm, x, h, c)
-    return project(h_new), h_new, c_new, alpha
+    return h_new, c_new, alpha
+
+
+def _hidden_step(params, ctx, token, h, c, emb_drop=None, out_drop=None):
+    """decode_step without the vocab projection, with the step's dropout
+    multipliers: (h_out, h', c')."""
+    e = params.embed[token]
+    if emb_drop is not None:
+        e = e * emb_drop
+    h_new, c_new, _ = _attend_gate_cell(params, ctx, e, h, c)
+    h_out = h_new * out_drop if out_drop is not None else h_new
+    return h_out, h_new, c_new
+
+
+def decoder_forward(
+    params: DecoderParams,
+    ctx: DecodeContext,
+    summary: torch.Tensor,   # [B, He]
+    captions: torch.Tensor,  # [B, L] BOS ... EOS PAD*
+    gen: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Teacher-forced logits [B, L-1, V]; logits[:, t] predicts captions[:, t+1].
+
+    Counterpart of the JAX `decoder_forward`: the L-1 steps run as a Python
+    loop of the plain attention + gate + cell (the attn_lstm kernel has no
+    backward), the dropout multipliers of every step are drawn up front
+    (`emb_drop` [L-1, B, E], `out_drop` [L-1, B, Hd]), and the vocab
+    projection is hoisted out of the loop into one product over all
+    steps' hidden states, which are stacked batch-major so that the logits
+    come out contiguous. `remat=True` checkpoints each step: the backward
+    recomputes its attention and gate instead of keeping them."""
+    b, length = captions.shape
+    h, c = init_decoder_state(params, summary)
+    inputs = captions[:, :-1].long()
+    emb_drop = out_drop = None
+    if gen is not None and dropout_rate > 0.0:
+        scale = 1.0 / (1.0 - dropout_rate)
+        dev, dt = params.embed.device, params.embed.dtype
+        emb_drop = dropout.keep_mask(
+            gen, (length - 1, b, params.embed.shape[1]), dropout_rate, dev).to(dt) * scale
+        out_drop = dropout.keep_mask(
+            gen, (length - 1, b, params.hidden_dim), dropout_rate, dev).to(dt) * scale
+    hs = []
+    for t in range(length - 1):
+        args = (params, ctx, inputs[:, t], h, c,
+                None if emb_drop is None else emb_drop[t], None if out_drop is None else out_drop[t])
+        if remat:
+            h_out, h, c = checkpoint(_hidden_step, *args, use_reentrant=False)
+        else:
+            h_out, h, c = _hidden_step(*args)
+        hs.append(h_out)
+    hs = torch.stack(hs, dim=1)  # [B, L-1, Hd]
+    return mm(hs, params.w_out) + params.b_out.float()

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from controllable_xgating_torch.ops import dropout
 from controllable_xgating_torch.ops.lstm import LSTMWeights, bilstm_scan, init_lstm, lstm_scan
 from controllable_xgating_torch.ops.xgate import XGateWeights, init_xgate, xgate_fuse
 
@@ -49,18 +50,25 @@ def encode(
     motion: torch.Tensor,                      # [B, T, Dm]
     frame_mask: Optional[torch.Tensor] = None,  # [B, T] 1=valid
     fused_kernels: Optional[bool] = None,
+    gen: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
 ):
     """Returns (enc_out [B, T, He], summary [B, He]).
 
     `fused_kernels=True` routes the cross-gated fusion through the XGating
-    kernel wrapper. The concat ablation has no kernel and always takes the
-    plain path, as in the JAX package."""
+    kernel wrapper (inference only: the kernel has no backward). The
+    concat ablation has no kernel and always takes the plain path, as in
+    the JAX package. With a generator and `dropout_rate > 0` the fused
+    features are dropped out (keep-mask, scaled by 1 / (1 - rate))."""
     if fused_kernels and params.xgate.mode == "xgate":
         from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
 
         fused = xgate_fuse_kernel(params.xgate, app, motion)
     else:
         fused = xgate_fuse(params.xgate, app, motion)  # [B, T, H]
+    if gen is not None and dropout_rate > 0.0:
+        keep = dropout.keep_mask(gen, fused.shape, dropout_rate, fused.device)
+        fused = torch.where(keep, fused / (1.0 - dropout_rate), 0.0).to(fused.dtype)
     if params.lstm_bwd is not None:
         enc_out, _ = bilstm_scan(params.lstm_fwd, params.lstm_bwd, fused, frame_mask)
     else:

@@ -9,6 +9,7 @@ from __future__ import annotations
 from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_step_kernel
 from controllable_xgating_torch.ops.kernels.pos_lstm import pos_lstm_step_kernel
 from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk
+from controllable_xgating_torch.ops.kernels.xent import xent_bwd_kernel, xent_fwd_kernel
 from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
 
 WRAPPERS = {
@@ -16,6 +17,8 @@ WRAPPERS = {
     "pos_lstm": pos_lstm_step_kernel,
     "attn_lstm": attn_lstm_step_kernel,
     "topk_tail": logits_topk,
+    "xent_fwd": xent_fwd_kernel,
+    "xent_bwd": xent_bwd_kernel,
 }
 
 

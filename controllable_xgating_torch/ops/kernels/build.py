@@ -91,6 +91,8 @@ _SIGNATURES = {
     "cxg_pos_lstm_fwd": [_I] + [_P] * 9 + [_I] * 3 + [_P],
     "cxg_attn_lstm_fwd": [_I] + [_P] * 21 + [_I] * 6 + [_P],
     "cxg_topk_tail_fwd": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "cxg_xent_fwd": [_P] * 5 + [_I] * 2 + [_P],
+    "cxg_xent_bwd": [_P] * 7 + [_I] * 2 + [_P],
     "cxg_xgate_smem_bytes": [_I],
     "cxg_attn_smem_bytes": [_I] * 3,
 }

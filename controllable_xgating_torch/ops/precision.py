@@ -12,8 +12,8 @@ TF32 is switched off for matmuls and cuDNN: it keeps ~3 decimal digits
 and would make the f32 policy a different computation on the card.
 
 The policy is process-global. CLIs set it once at startup (bf16 on the
-card, as the JAX CLIs do on any non-CPU backend); tests pin f32. The
-custom VJP of the JAX `mm` belongs to training and is not ported yet.
+card, as the JAX CLIs do on any non-CPU backend); tests pin f32. `mm`
+carries the JAX `mm`'s custom VJP for training.
 """
 
 from __future__ import annotations
@@ -51,8 +51,41 @@ def precision(dtype):
         _POLICY["compute_dtype"] = old
 
 
+def _mm_plain(a: torch.Tensor, b: torch.Tensor, d: torch.dtype) -> torch.Tensor:
+    return torch.matmul(a.to(d).float(), b.to(d).float())
+
+
+class _PolicyMatmul(torch.autograd.Function):
+    """The JAX `mm`'s custom VJP: the cotangent g is rounded to the compute
+    dtype, and both transposed products take operands in that dtype with
+    f32 products and sums; da and db come back in a's and b's dtypes.
+    Plain autograd of `_mm_plain` would leave g in f32 and round da and db
+    to bf16 on the way back through the casts. Under the f32 policy the
+    two are the same."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        d = _POLICY["compute_dtype"]
+        ctx.save_for_backward(a, b)
+        ctx.compute_dtype = d
+        return _mm_plain(a, b, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        d = ctx.compute_dtype
+        g16 = g.to(d).float()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g16, b.to(d).float().T).to(a.dtype)  # [..., K]
+        if ctx.needs_input_grad[1]:
+            a2d = a.reshape(-1, a.shape[-1]).to(d).float()
+            db = torch.matmul(a2d.T, g16.reshape(-1, g.shape[-1])).to(b.dtype)  # [K, N]
+        return da, db
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Policy matmul: a [..., K] @ b [K, N], operands rounded to the compute
-    dtype, product and sum in f32. Returns f32."""
-    d = _POLICY["compute_dtype"]
-    return torch.matmul(a.to(d).float(), b.to(d).float())
+    dtype, product and sum in f32. Returns f32; its backward is the JAX
+    `mm`'s custom VJP (`_PolicyMatmul`)."""
+    return _PolicyMatmul.apply(a, b)

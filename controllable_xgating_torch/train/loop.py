@@ -1,0 +1,136 @@
+"""Training loop: epochs, eval on val, best-metric checkpoint retention.
+
+Counterpart of `train_loop` in `controllable_xgating_tpu/train/loop.py`,
+on one device: batches from the iterator -> train step -> eval every
+`eval_every_epochs` through `evaluate_split` -> `last` always and `best` on
+the tracked metric, per-epoch snapshots, early stop. Left out for now: the
+multi-host branches, and the JAX package's prefetch thread
+(`data/features.py`, an HDF5 module): batches are built on the host
+between steps, and the step moves each to the card.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from controllable_xgating_torch.data.loader import TrainBatchIterator
+from controllable_xgating_torch.infer.evaluator import evaluate_split
+from controllable_xgating_torch.train.state import CheckpointManager, TrainState
+from controllable_xgating_torch.utils.logging import JsonlLogger, get_logger
+
+log = get_logger("cxg.train")
+
+
+def train_loop(
+    state: TrainState,
+    step_fn: Callable[[TrainState, dict], tuple[TrainState, dict]],
+    train_iter: TrainBatchIterator,
+    store,
+    labels: dict,
+    info,
+    cfg,
+    epochs: int,
+    ckpt: Optional[CheckpointManager] = None,
+    jsonl: Optional[JsonlLogger] = None,
+    eval_split: str = "val",
+    infos_extra: Optional[dict] = None,
+    track_metric: Optional[str] = None,
+) -> tuple[TrainState, dict]:
+    """Run `epochs` epochs. Returns (state, {"best": ..., "history": [...]});
+    each history entry has the epoch's mean loss, samples/s and, on eval
+    epochs, the val metrics under "eval"."""
+    steps_per_epoch = train_iter.steps_per_epoch()
+    jsonl = jsonl or JsonlLogger(echo=False)
+    track_metric = track_metric or cfg.train.keep_best_metric
+    best_score = -float("inf")
+    epochs_since_improve = 0
+    history = []
+    start_step = int(state.step)
+    batches = iter(train_iter)
+    caption_fn = _make_select_caption_fn(cfg)
+
+    for epoch in range(epochs):
+        t0 = time.time()
+        losses = []
+        for i in range(steps_per_epoch):
+            state, metrics = step_fn(state, next(batches))
+            losses.append(metrics["loss"])
+            step = start_step + epoch * steps_per_epoch + i + 1
+            if step % cfg.train.log_every_steps == 0:
+                jsonl.log(step, epoch=epoch, **{k: float(v) for k, v in metrics.items()})
+        global_step = start_step + (epoch + 1) * steps_per_epoch
+        # one transfer per epoch for the summary
+        mean_loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
+        dt = time.time() - t0
+        samples = steps_per_epoch * train_iter.batch_size
+        log.info("epoch %d loss %.4f (%.1f samples/s)", epoch, mean_loss, samples / dt)
+        entry = {"epoch": epoch, "loss": mean_loss, "samples_per_sec": samples / dt}
+
+        # per-epoch snapshot window ('epoch_<n>' slots, absolute numbering)
+        if ckpt is not None and cfg.train.keep_epoch_snapshots > 0:
+            abs_epoch = epoch + start_step // max(steps_per_epoch, 1)
+            ckpt.save(f"epoch_{abs_epoch}", state, {
+                "epoch": abs_epoch, "step": global_step, "best_score": None,
+                "metric": track_metric, **(infos_extra or {}),
+            })
+            drop = abs_epoch - cfg.train.keep_epoch_snapshots
+            if drop >= 0:
+                ckpt.delete(f"epoch_{drop}")
+
+        stop = False
+        if (epoch + 1) % cfg.train.eval_every_epochs == 0:
+            metrics, _ = evaluate_split(
+                state.params, store, labels, info, split=eval_split,
+                batch_size=cfg.data.batch_size, max_len=cfg.eval.max_decode_len,
+                max_pos_len=cfg.model.max_pos_len, caption_fn=caption_fn,
+                metrics=cfg.eval.metrics,
+            )
+            entry["eval"] = metrics
+            score = metrics.get(track_metric, metrics.get("CIDEr", 0.0))
+            jsonl.log(global_step, epoch=epoch, **{f"val_{k}": v for k, v in metrics.items()})
+            log.info("epoch %d val %s=%.4f", epoch, track_metric, score)
+            infos = {
+                "epoch": epoch, "step": global_step, "best_score": max(best_score, score),
+                "metric": track_metric, **(infos_extra or {}),
+            }
+            improved = score > best_score
+            if ckpt is not None:
+                ckpt.save_last(state, infos)
+                if improved:
+                    ckpt.save_best(state, infos)
+            if improved:
+                best_score = score
+                epochs_since_improve = 0
+            else:
+                epochs_since_improve += 1
+            stop = (cfg.train.early_stop_patience > 0
+                    and epochs_since_improve >= cfg.train.early_stop_patience)
+        history.append(entry)
+        if stop:
+            log.info("early stop at epoch %d: no %s improvement in %d consecutive eval epochs",
+                     epoch, track_metric, cfg.train.early_stop_patience)
+            break
+    return state, {"best": best_score, "history": history}
+
+
+def _make_select_caption_fn(cfg):
+    """Decode fn for per-epoch model selection (`eval.select_decode`)."""
+    if cfg.eval.select_decode == "beam":
+        from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+
+        return make_beam_caption_fn(
+            cfg.eval.beam_size, cfg.model.max_pos_len, cfg.eval.max_decode_len,
+            length_penalty=cfg.eval.length_penalty, block_unk=cfg.eval.block_unk,
+        )
+    if cfg.eval.select_decode != "greedy":
+        raise ValueError(
+            f"eval.select_decode must be 'greedy' or 'beam', got {cfg.eval.select_decode!r}"
+        )
+    from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
+
+    return make_greedy_caption_fn(cfg.model.max_pos_len, cfg.eval.max_decode_len,
+                                  block_unk=cfg.eval.block_unk)

@@ -1,16 +1,22 @@
-"""Where the device time of a caption call goes, on one CUDA card.
+"""Where the device time of a caption call or an XE train step goes, on
+one CUDA card.
 
     python -m controllable_xgating_torch.utils.profiling [--out DIR]
 
-Beam-5 and greedy over 256 videos at MSR-VTT width (`configs/msrvtt.json`,
-vocab 10000, 35 POS tags), random weights from seed 0, seeded features with
-every frame valid, bf16 policy, early stop off so that every call runs all
-28 steps; first through the kernels, then through the plain path. For each,
-one warm-up call, one call timed on the host clock (wall), then one call
-under `torch.profiler`, which gives the device time (kernels, copies and
-sets on the card), its ratio to the wall time (the device busy share), the
-copies and casts (`aten::copy_`) with their device time, and the top ops
-by device time. The Chrome traces go to DIR (default `chiprun_out/`).
+At MSR-VTT width (`configs/msrvtt.json`, vocab 10000, 35 POS tags), random
+weights from seed 0, bf16 policy, first through the kernels, then through
+the plain path:
+  caption: beam-5 and greedy over 256 videos, seeded features with every
+    frame valid, early stop off so that every call runs all 28 steps;
+  train: one joint-stage XE step (`make_xe_train_step`) on a batch of 64
+    videos x 5 seeded captions of 27 words (no PAD), dropout 0.5, the
+    batch already on the card.
+For each, one warm-up call, one call timed on the host clock (wall), then
+one call under `torch.profiler`, which gives the device time (kernels,
+copies and sets on the card), its ratio to the wall time (the device busy
+share), the copies and casts (`aten::copy_`) with their device time, and
+the top ops by device time. The Chrome traces go to DIR (default
+`chiprun_out/`).
 
 This module imports nothing at import time beyond torch; it runs only
 where `torch.cuda.is_available()`.
@@ -58,6 +64,53 @@ def device_time_ms(key_averages) -> float:
     ) / 1e3
 
 
+def caption_calls(cfg, dev):
+    """[(name, fn, args)] of the caption path; fn is built under the
+    current kernel setting."""
+    import numpy as np
+
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
+    from controllable_xgating_torch.models.captioner import init_captioner
+
+    params = init_captioner(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    feats = (
+        torch.as_tensor(rng.normal(size=(B, T, cfg.model.app_dim)).astype(np.float32), device=dev),
+        torch.as_tensor(rng.normal(size=(B, T, cfg.model.motion_dim)).astype(np.float32), device=dev),
+        torch.ones(B, T, device=dev),
+    )
+    return [
+        ("beam5", make_beam_caption_fn(K, MAX_LEN, MAX_LEN, early_stop=False), (params, *feats)),
+        ("greedy", make_greedy_caption_fn(MAX_LEN, MAX_LEN, early_stop=False), (params, *feats)),
+    ]
+
+
+def train_calls(cfg, dev):
+    """[("xe_step", step, (state, batch))]: one joint XE step on a batch
+    already on the card."""
+    import numpy as np
+
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.train.state import create_train_state, make_optimizer
+    from controllable_xgating_torch.train.xe import make_xe_train_step
+
+    rng = np.random.default_rng(0)
+    b, k = cfg.data.batch_size, cfg.data.caps_per_video_train
+    seqs = lambda vocab: np.concatenate([
+        np.ones((b, k, 1)), rng.integers(4, vocab, (b, k, MAX_LEN - 2)), np.full((b, k, 1), 2)],
+        axis=-1).astype(np.int32)
+    put = lambda x: torch.as_tensor(x, device=dev)
+    batch = {
+        "app": put(rng.normal(size=(b, T, cfg.model.app_dim)).astype(np.float32)),
+        "motion": put(rng.normal(size=(b, T, cfg.model.motion_dim)).astype(np.float32)),
+        "caps": put(seqs(VOCAB)), "pos": put(seqs(POS_VOCAB)), "frame_mask": torch.ones(b, T, device=dev),
+    }
+    state = create_train_state(init_captioner(cfg, seed=0, device=dev), cfg)
+    step = make_xe_train_step(make_optimizer(cfg, 100), cfg, "joint")
+    return [("xe_step", step, (state, batch))]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out", help="directory for the Chrome traces")
@@ -65,11 +118,6 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("profiling: needs a CUDA device")
 
-    import numpy as np
-
-    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
-    from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
-    from controllable_xgating_torch.models.captioner import init_captioner
     from controllable_xgating_torch.ops.dispatch import set_fused_kernels
     from controllable_xgating_torch.ops.precision import set_compute_dtype
     from controllable_xgating_torch.utils.config import load_config
@@ -77,24 +125,13 @@ def main(argv=None) -> None:
     cfg = load_config(os.path.join(ROOT, "configs", "msrvtt.json"),
                       {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB})
     dev = torch.device("cuda:0")
-    params = init_captioner(cfg, seed=0).to(dev)
-    rng = np.random.default_rng(0)
-    feats = (
-        torch.as_tensor(rng.normal(size=(B, T, cfg.model.app_dim)).astype(np.float32), device=dev),
-        torch.as_tensor(rng.normal(size=(B, T, cfg.model.motion_dim)).astype(np.float32), device=dev),
-        torch.ones(B, T, device=dev),
-    )
     set_compute_dtype("bfloat16")
     os.makedirs(args.out, exist_ok=True)
     try:
         for fused in (None, False):
             set_fused_kernels(fused)
-            fns = (
-                ("beam5", make_beam_caption_fn(K, MAX_LEN, MAX_LEN, early_stop=False)),
-                ("greedy", make_greedy_caption_fn(MAX_LEN, MAX_LEN, early_stop=False)),
-            )
-            for name, fn in fns:
-                wall, ka, prof = profile_call(fn, (params, *feats))
+            for name, fn, fn_args in caption_calls(cfg, dev) + train_calls(cfg, dev):
+                wall, ka, prof = profile_call(fn, fn_args)
                 device_ms = device_time_ms(ka)
                 copies = [e for e in ka if e.key == "aten::copy_"]
                 tag = f"{name}_{'kernels' if fused is None else 'plain'}"

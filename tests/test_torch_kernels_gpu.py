@@ -149,6 +149,111 @@ def test_wrappers_raise_on_shapes_they_do_not_take(dev):
     assert kernels.launch_counts() == {n: 0 for n in kernels.WRAPPERS}
 
 
+@pytest.mark.parametrize("n,v", [(37, 257), (130, 2048), (1, 3), (8640, 10000)])
+def test_xent_kernels(dev, n, v):
+    """Forward and backward against the plain version (f32 only: the
+    logits are f32 under either policy); rows not a multiple of the 8 rows
+    a block takes, and V % 4 != 0 rows that start off 16-byte alignment."""
+    from controllable_xgating_torch.ops.kernels.xent import (
+        xent_bwd_kernel,
+        xent_fwd_kernel,
+        xent_row_stats_plain,
+    )
+
+    _, gd = gen(dev)
+    tol = POLICIES[0][1]
+    x = torch.randn(n, v, generator=gd, device=dev) * 3
+    t = torch.randint(0, v, (n,), generator=gd, device=dev)
+    cot = [torch.randn(n, generator=gd, device=dev) for _ in range(3)]
+    xr = x.clone().requires_grad_(True)
+    ref = xent_row_stats_plain(xr, t)
+    (ref_dx,) = torch.autograd.grad(sum((c * r).sum() for c, r in zip(cot, ref)), xr)
+    for a, r in zip(xent_fwd_kernel(x, t), ref):
+        close(a, r.detach(), tol)
+    close(xent_bwd_kernel(x, t, ref[0].detach(), *cot), ref_dx, tol)
+    counts = kernels.launch_counts()
+    assert counts["xent_fwd"] == counts["xent_bwd"] == 1
+
+
+def test_xent_row_stats_autograd_on_the_card(dev):
+    """Through the autograd.Function: unused statistics have no cotangent
+    (treated as zero), int32 targets are taken, one launch each way."""
+    from controllable_xgating_torch.ops.kernels.xent import xent_row_stats, xent_row_stats_plain
+
+    _, gd = gen(dev)
+    x = (torch.randn(100, 3000, generator=gd, device=dev) * 2).requires_grad_(True)
+    t = torch.randint(0, 3000, (100,), generator=gd, device=dev, dtype=torch.int32)
+    (dx,) = torch.autograd.grad(xent_row_stats(x, t)[0].sum(), x)
+    (ref,) = torch.autograd.grad(xent_row_stats_plain(x, t)[0].sum(), x)
+    close(dx, ref, POLICIES[0][1])
+    assert kernels.launch_counts()["xent_fwd"] == kernels.launch_counts()["xent_bwd"] == 1
+
+
+def test_xent_wrapper_raises_on_inputs_it_does_not_take(dev):
+    from controllable_xgating_torch.ops.kernels.xent import xent_row_stats
+
+    x = torch.randn(16, 512, device=dev)
+    t = torch.zeros(16, dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        xent_row_stats(x[:, ::2], t)
+    with pytest.raises(TypeError, match="float32"):
+        xent_row_stats(x.bfloat16(), t)
+    with pytest.raises(ValueError, match="targets"):
+        xent_row_stats(x, t[:8])
+    assert kernels.launch_counts() == {n: 0 for n in kernels.WRAPPERS}
+
+
+def test_xe_train_step_kernels_match_plain_path(dev):
+    """One joint step at a small width through the xent kernels and through
+    the plain path, f32, from the same state and batch, with label
+    smoothing so that all three statistics carry a gradient. Adam's first
+    moment after one step is 0.1 x the clipped gradient: all parameters'
+    together are held within a relative norm of 1e-5 (a parameter whose
+    gradient nearly cancels differs by ~1e-4 of its own norm from sum
+    order alone)."""
+    import numpy as np
+
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.train.state import create_train_state, make_optimizer
+    from controllable_xgating_torch.train.xe import make_xe_train_step
+    from controllable_xgating_torch.utils.config import Config
+
+    cfg = Config().replace_flat({
+        "model.app_dim": 40, "model.motion_dim": 24, "model.hidden_dim": 64,
+        "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
+        "model.vocab_size": 2500, "model.pos_vocab_size": 20, "model.num_frames": 6,
+        "model.dropout": 0.3, "train.label_smoothing": 0.1,
+    })
+    rng = np.random.default_rng(0)
+    caps = rng.integers(4, 2500, (4, 3, 9)).astype(np.int32)
+    caps[..., 0], caps[..., 7], caps[..., 8] = 1, 2, 0
+    pos = rng.integers(4, 20, (4, 3, 9)).astype(np.int32)
+    pos[..., 0], pos[..., 6], pos[..., 7:] = 1, 2, 0
+    batch = {"app": rng.standard_normal((4, 6, 40)).astype(np.float32),
+             "motion": rng.standard_normal((4, 6, 24)).astype(np.float32),
+             "caps": caps, "pos": pos, "frame_mask": np.ones((4, 6), np.float32)}
+    out = []
+    with precision("float32"):
+        for fused in (None, False):
+            try:
+                set_fused_kernels(fused)
+                state = create_train_state(init_captioner(cfg, seed=1, device=dev), cfg)
+                state, m = make_xe_train_step(make_optimizer(cfg, 10), cfg)(state, batch)
+            finally:
+                set_fused_kernels(None)
+            out.append((m, [p.detach().clone() for p in state.params.parameters()],
+                        [state.opt_state.state[p]["exp_avg"] for p in state.params.parameters()]))
+    (mk, pk, gk), (mp, pp, gp) = out
+    for key in ("loss", "grad_norm", "cap_loss", "pos_loss"):
+        close(mk[key], mp[key], dict(rtol=1e-4, atol=1e-6))
+    for a, b in zip(pk, pp):
+        close(a, b, dict(rtol=0.0, atol=1e-5))
+    gk, gp = (torch.cat([m.flatten() for m in ms]) for ms in (gk, gp))
+    assert (gk - gp).norm() <= 1e-5 * gp.norm()
+    assert kernels.launch_counts()["xent_fwd"] == kernels.launch_counts()["xent_bwd"] == 1
+
+
 @pytest.mark.parametrize("beam", [True, False], ids=["beam5", "greedy"])
 def test_caption_path_kernels_match_plain_path(dev, beam):
     from controllable_xgating_torch.infer.beam import make_beam_caption_fn
@@ -162,7 +267,7 @@ def test_caption_path_kernels_match_plain_path(dev, beam):
         "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
         "model.vocab_size": 500, "model.pos_vocab_size": 20, "model.num_frames": 6,
     })
-    params = init_captioner(cfg, seed=3).to(dev)
+    params = init_captioner(cfg, seed=3, device=dev)
     gd = torch.Generator(device=dev).manual_seed(4)
     app = torch.randn(8, 6, 40, generator=gd, device=dev)
     mot = torch.randn(8, 6, 24, generator=gd, device=dev)

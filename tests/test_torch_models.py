@@ -116,7 +116,7 @@ def test_bridge_rejects_unknown_and_missing_keys(model):
 @pytest.mark.parametrize("fusion", ["xgate", "concat"])
 def test_init_captioner_matches_jax_shapes_and_ranges(fusion):
     cfg = make_cfg(fusion=fusion)
-    tp = t_cap.init_captioner(cfg, seed=5)
+    tp = t_cap.init_captioner(cfg, seed=5, device="cpu")
     jshapes = {n: tuple(x.shape) for n, x in param_paths(
         jax.eval_shape(lambda: j_cap.init_captioner(jax.random.PRNGKey(0), cfg.model)))}
     assert {n: tuple(p.shape) for n, p in tp.named_parameters()} == jshapes
@@ -127,7 +127,7 @@ def test_init_captioner_matches_jax_shapes_and_ranges(fusion):
             assert torch.equal(p[h:2 * h], torch.ones(h)), name  # forget-gate bias
         elif p.ndim == 2 and not name.endswith("embed"):
             assert float(p.abs().max()) <= 1.0 / np.sqrt(p.shape[0]) + 1e-7, name
-    again = t_cap.init_captioner(cfg, seed=5)  # same seed, same weights
+    again = t_cap.init_captioner(cfg, seed=5, device="cpu")  # same seed, same weights
     assert all(torch.equal(a, b) for a, b in zip(tp.parameters(), again.parameters()))
     assert tp.encoder.xgate.mode == fusion
 

@@ -261,7 +261,7 @@ def test_topk_breaks_ties_by_lower_index():
 
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
-    from controllable_xgating_torch.ops.kernels import attn_lstm, pos_lstm, topk_tail, xgate
+    from controllable_xgating_torch.ops.kernels import attn_lstm, pos_lstm, topk_tail, xent, xgate
 
     kernels.reset_launch_counts()
     jp, tp = _pos_and_decoder(22)
@@ -278,6 +278,10 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
         assert torch.equal(a, b)
     w, bias = T(np.asarray(jp.decoder.w_out)), T(np.asarray(jp.decoder.b_out))
     for a, b in zip(topk_tail.logits_topk(h, w, bias, 3), topk_tail.logits_topk_plain(h, w, bias, 3)):
+        assert torch.equal(a, b)
+    (x,) = arrays(29, (6, 40))
+    t = torch.tensor([0, 3, 39, 7, 1, 2])
+    for a, b in zip(xent.xent_row_stats(T(x), t), xent.xent_row_stats_plain(T(x), t)):
         assert torch.equal(a, b)
     assert kernels.launch_counts() == {n: 0 for n in kernels.WRAPPERS}
 
@@ -305,7 +309,7 @@ def test_kernel_sources_and_library_name():
     from controllable_xgating_torch.ops.kernels import build
 
     assert {os.path.basename(p) for p in build._sources()[0]} == {
-        "attn_lstm.cu", "pos_lstm.cu", "topk_tail.cu", "xgate.cu"}
+        "attn_lstm.cu", "pos_lstm.cu", "topk_tail.cu", "xent.cu", "xgate.cu"}
     name = os.path.basename(build.library_path())
     assert name.startswith("libcxg_kernels_") and name.endswith(".so")
     assert build.build_dir() == os.path.join(REPO, "build", "kernels")
@@ -347,14 +351,16 @@ def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_port_imports_no_jax_flax_orbax_h5py():
-    """Every module imports without jax & co., and importing builds nothing."""
+    """Every module imports without jax & co. or any module of the JAX
+    package, and importing builds nothing."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import controllable_xgating_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'h5py') if m in sys.modules]\n"
-        "assert len(mods) >= 20 and not bad, (len(mods), bad)\n"
+        "banned = ('jax', 'flax', 'optax', 'orbax', 'h5py', 'controllable_xgating_tpu')\n"
+        "bad = sorted({m for m in sys.modules if m.split('.')[0] in banned})\n"
+        "assert len(mods) >= 30 and not bad, (len(mods), bad)\n"
         "from controllable_xgating_torch.ops.kernels import build\n"
         "assert build._LIB is None\n"
     )
