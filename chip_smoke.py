@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning and XE-training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's captioning, quantized-decoding and XE-training
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
 Phases, each fatal on failure:
   1. refuse to run without a CUDA device; print the card's name and
      power limit;
-  2. build the CUDA kernels of both paths from `csrc/`;
-  3. hold every caption kernel against its plain PyTorch version at the
-     shapes the path gives it (MSR-VTT width: 256 videos x 26 frames,
-     beam 5), under the f32 policy (rtol 1e-4, atol 1e-5) and the bf16
-     policy (a bound per kernel, `BF16_TOL`), and time both with CUDA
-     events;
+  2. build the CUDA kernels of every path from `csrc/` (one nvcc per
+     source, all started together);
+  3. hold every caption kernel and the logits top-k by iterative
+     extraction (K6) against its plain PyTorch version at the shapes the
+     path gives it (MSR-VTT width: 256 videos x 26 frames, beam 5), under
+     the f32 policy (rtol 1e-4, atol 1e-5) and the bf16 policy (a bound
+     per kernel, `BF16_TOL`), and time both with CUDA events; K6 is also
+     held against the beam tail's kernel (K4) on the same inputs;
   4. caption 256 seeded videos with random seeded weights under the bf16
      policy through `evaluate_split` with `make_beam_caption_fn` (beam 5),
      then with `make_greedy_caption_fn`; every kernel of each path must
@@ -20,7 +22,20 @@ Phases, each fatal on failure:
   5. under the f32 policy, the kernel path and the plain path
      (`set_fused_kernels(False)`) must give the same caption for >= 98% of
      the videos, beam and greedy;
-  6. training at MSR-VTT width (batch 64 x 5 captions, vocab 10000, 35 POS
+  6. the quantized decode path (`vocab_q`): the int8 vocab projection
+     kernel (K7) against its plain version at the greedy [256, 512] and
+     beam [1280, 512] shapes -> 10000 (rtol 1e-4, atol 1e-5), timed beside
+     the bf16 projection it stands in for; greedy and beam-5 (grouped
+     tail) with `vocab_q` over the 256 videos through `evaluate_split` and
+     the entry point of `tools/quant_ab.py`, bf16 policy, where K7 must
+     launch once per step (28) and xgate, pos_lstm and attn_lstm as on the
+     unquantized paths, topk_tail never; under the f32 policy the int8
+     kernel and plain paths must agree on >= 98% of the captions; printed
+     only, the agreement with the bf16 projection and the captions/s of
+     both in turns;
+  7. one beam-5 call per full log-softmax tail (grouped, flat, block), plain
+     path, unquantized: the tokens must be equal;
+  8. training at MSR-VTT width (batch 64 x 5 captions, vocab 10000, 35 POS
      tags) on seeded features and captions through `TrainBatchIterator`:
      the cross-entropy kernels (K5, forward and backward) against their
      plain version at the step's shape [8640, 10000] (rtol 1e-4; atol
@@ -33,7 +48,8 @@ Phases, each fatal on failure:
      Adam first moments within a relative norm of 1e-5, parameters within
      atol 1e-5); ten steps on one batch at dropout 0,
      whose loss must fall;
-then print one JSON line of kernel results and, last, one JSON line
+then print one JSON line of kernel results (eight kernels, each with its
+launches on its path, bound and times) and, last, one JSON line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -60,7 +76,10 @@ BF16_TOL = {
     "pos_lstm": dict(rtol=0.0, atol=1e-5),
     "attn_lstm": dict(rtol=0.0, atol=1e-4),
     "topk_tail": dict(rtol=0.0, atol=1e-5),
+    # the same contract as topk_tail, held to its bound
+    "topk_extract": dict(rtol=0.0, atol=1e-5),
 }
+TOPK_KERNELS = ("topk_tail", "topk_extract")
 # K5's dx is mostly ~1/V (1e-4 at V = 10000) and below: its atol is this
 # share of max |dx|, with F32_TOL's rtol; a backward kernel that scales
 # the g_mean / V term by 1/2 fails it
@@ -73,6 +92,8 @@ HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 989e12, 67e12
 PATH_KERNELS = {
     "beam-5": ("xgate", "pos_lstm", "attn_lstm", "topk_tail"),
     "greedy": ("xgate", "pos_lstm", "attn_lstm"),
+    "greedy-int8": ("xgate", "pos_lstm", "attn_lstm", "int8_vocab"),
+    "beam-5-int8": ("xgate", "pos_lstm", "attn_lstm", "int8_vocab"),
     "xe-train": ("xent_fwd", "xent_bwd"),
 }
 
@@ -148,7 +169,13 @@ def kernel_cases(params, dev):
 
     from controllable_xgating_torch.models.decoder import init_decoder_state, make_decode_context
     from controllable_xgating_torch.models.pos_generator import _summary_gates
-    from controllable_xgating_torch.ops.kernels import attn_lstm, pos_lstm, topk_tail, xgate
+    from controllable_xgating_torch.ops.kernels import (
+        attn_lstm,
+        pos_lstm,
+        topk_extract,
+        topk_tail,
+        xgate,
+    )
     from controllable_xgating_torch.ops.precision import compute_dtype
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -178,31 +205,33 @@ def kernel_cases(params, dev):
          lambda: attn_lstm.attn_lstm_step_plain(*step)),
         ("topk_tail", lambda: topk_tail.logits_topk(h_out, w_out, dec.b_out, K),
          lambda: topk_tail.logits_topk_plain(h_out, dec.w_out, dec.b_out, K)),
+        ("topk_extract", lambda: topk_extract.logits_topk_extract_kernel(h_out, w_out, dec.b_out, K),
+         lambda: topk_extract.logits_topk_extract_plain(h_out, dec.w_out, dec.b_out, K)),
     ], (h_out, dec.w_out, dec.b_out)
 
 
 def check_kernels(params, dev, policy: str, tols: dict) -> dict:
-    """Kernel vs plain on the same inputs, within `tols[name]`; returns
-    {name: (max_abs_err, ms, plain_ms)}."""
+    """Kernel vs plain on the same inputs, within `tols[name]`, and the two
+    top-K kernels against each other; returns {name: (max_abs_err, ms,
+    plain_ms)}."""
     import torch
 
     from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk_plain
 
     cases, tail_inputs = kernel_cases(params, dev)
-    out = {}
+    rv, ri, _ = logits_topk_plain(*tail_inputs, K + 1)
+    out, tails = {}, {}
     for name, kern, plain in cases:
         tol = tols[name]
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        if name == "topk_tail":
+        if name in TOPK_KERNELS:
             # ids must agree wherever the plain K-th and (K+1)-th values are
             # further apart than the tolerance
-            vals, idx, lse = got
-            rv, ri, _ = logits_topk_plain(*tail_inputs, K + 1)
-            clear = rv[:, K - 1] - rv[:, K] > tol["atol"] + tol["rtol"] * rv[:, K - 1].abs()
-            same = (idx.sort(1).values == ri[:, :K].sort(1).values).all(1)
+            vals, idx, lse = tails[name] = got
+            clear, same = ids_agree(idx, rv, ri, tol)
             if not bool(same[clear].all()):
                 fail(f"{name} [{policy}]: top-{K} ids differ on {int((~same & clear).sum())} clear rows")
             in_order = (idx == ri[:, :K]).all(1).float().mean().item()
@@ -219,6 +248,62 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
         out[name] = (err, ms, plain_ms)
+    # K6 (iterative extraction) against K4 (per-lane insertion) on the same
+    # inputs: values and lse within the tolerance, ids equal on clear rows
+    (ev, ei, el), (kv, ki, kl) = tails["topk_extract"], tails["topk_tail"]
+    tol = tols["topk_extract"]
+    clear, same = ids_agree(ei, rv, ri, tol, ki)
+    err = max((ev - kv).abs().max().item(), (el - kl).abs().max().item())
+    if not (bool(same[clear].all()) and torch.allclose(ev, kv, **tol) and torch.allclose(el, kl, **tol)):
+        fail(f"topk_extract vs topk_tail [{policy}]: max |difference| {err:.3e}, ids differ on "
+             f"{int((~same & clear).sum())} clear rows")
+    print(f"kernel topk_extract vs topk_tail [{policy}]: max |difference| {err:.3e}, ids equal on "
+          f"all {int(clear.sum())} clear rows; kernel ms {out['topk_extract'][1]:.4f} vs "
+          f"{out['topk_tail'][1]:.4f}")
+    return out
+
+
+def ids_agree(idx, rv, ri, tol, other=None):
+    """(rows whose plain K-th and (K+1)-th values are further apart than
+    `tol`, rows whose top-K id sets equal `other`'s, the plain ids by
+    default)."""
+    clear = rv[:, K - 1] - rv[:, K] > tol["atol"] + tol["rtol"] * rv[:, K - 1].abs()
+    other = ri[:, :K] if other is None else other
+    return clear, (idx.sort(1).values == other.sort(1).values).all(1)
+
+
+def check_int8(params, dev) -> dict:
+    """K7 against its plain version at the greedy [256, 512] and beam
+    [1280, 512] shapes -> 10000, on the projection quantized from the
+    decoder's: both multiply the same bf16 operands, so F32_TOL. Times
+    both and the bf16 projection `mm(h, w_out) + b` (bf16 policy) that it
+    stands in for. Returns {rows: (max_abs_err, ms, plain_ms, bf16_ms)}."""
+    import torch
+
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_plain, int8_vocab_proj
+    from controllable_xgating_torch.ops.precision import mm
+
+    dec = params.decoder
+    q = quantize_vocab_proj(dec.w_out, dec.b_out)
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for rows in (B, B * K):
+        h = torch.tanh(torch.randn(rows, dec.hidden_dim, generator=g, device=dev))
+        kern = lambda: int8_vocab_proj(h, q.wq, q.scale, q.bias, q.n)
+        plain = lambda: int8_vocab_plain(h, q.wq, q.scale, q.bias)[:, : q.n]
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if got.shape != (rows, VOCAB) or not torch.isfinite(got).all() or not torch.allclose(
+                got, ref, **F32_TOL):
+            fail(f"int8_vocab [{rows}x{dec.hidden_dim}]: max |kernel - plain| = {err:.3e} "
+                 f"outside {F32_TOL}")
+        out[rows] = (err, cuda_ms(kern), cuda_ms(plain),
+                     cuda_ms(lambda: mm(h, dec.w_out) + dec.b_out.float()))
+        print(f"kernel int8_vocab [{rows}x{dec.hidden_dim} -> {VOCAB}]: max_abs_err {err:.3e}  "
+              f"kernel {out[rows][1]:.4f} ms  plain {out[rows][2]:.4f} ms  "
+              f"bf16 projection {out[rows][3]:.4f} ms  bound {int8_bound(rows, dec.hidden_dim, VOCAB)}")
     return out
 
 
@@ -259,6 +344,25 @@ def caption_bounds(params) -> dict:
         # h @ w_out over the whole vocab; K values, ids and the lse out
         "topk_tail": bound(c * (r * hd + hd * v) + 4 * v + 4 * r * (2 * K + 1),
                            2 * r * hd * v, BF16_OPS_S),
+    }
+
+
+def int8_bound(rows: int, hd: int, v: int) -> tuple[float, str]:
+    """K7 at [rows, hd] -> v, reckoned as `caption_bounds` is: it reads x
+    (bf16), wq (int8, padded width), scale and bias (f32) and writes the
+    f32 logits; the products run on the bf16 tensor cores."""
+    vpad = -(-v // 1024) * 1024
+    return bound(2 * rows * hd + hd * vpad + 4 * 2 * vpad + 4 * rows * v, 2 * rows * hd * v,
+                 BF16_OPS_S)
+
+
+def quant_bounds(params) -> dict:
+    """Bounds of the two experiments/ kernels at the kernel phase's beam
+    shape: int8_vocab's as above, and topk_extract does topk_tail's work."""
+    dec = params.decoder
+    return {
+        "int8_vocab": int8_bound(B * K, dec.hidden_dim, dec.vocab_size),
+        "topk_extract": caption_bounds(params)["topk_tail"],
     }
 
 
@@ -477,6 +581,112 @@ def caption_fn(beam: bool, fused):
     return make_greedy_caption_fn(MAX_LEN, MAX_LEN, fused=fused)
 
 
+def int8_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
+    """The quantized decode path (`vocab_q`, the entry point of
+    `tools/quant_ab.py`), after the unquantized paths have filled
+    `counts`: greedy and beam-5 (grouped tail) over the 256 videos through
+    `evaluate_split`, bf16 policy, kernels on, counting launches around each
+    run; the f32 agreement of the kernel and plain int8 paths; printed
+    only, the agreement with the unquantized path and the captions/s of
+    both. Returns K7's results at the beam shape."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.infer.evaluator import evaluate_split
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.ops.precision import set_compute_dtype
+    from controllable_xgating_torch.tools.quant_ab import make_fn
+
+    set_compute_dtype("bfloat16")
+    set_fused_kernels(None)
+    k7 = check_int8(params, dev)
+    vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
+    for beam, label in ((False, "greedy-int8"), (True, "beam-5-int8")):
+        kernels.reset_launch_counts()
+        metrics, caps = evaluate_split(
+            params, store, labels, info, split="test", batch_size=B, max_len=MAX_LEN,
+            max_pos_len=MAX_LEN, caption_fn=make_fn(cfg, beam, vq),
+        )
+        torch.cuda.synchronize()
+        counts[label] = got = kernels.launch_counts()
+        print(f"{label} launches {got}")
+        base = counts["beam-5" if beam else "greedy"]
+        if got["int8_vocab"] != MAX_LEN or got["topk_tail"] != 0 or any(
+                got[n] != base[n] for n in ("xgate", "pos_lstm", "attn_lstm")):
+            fail(f"{label}: expected {MAX_LEN} int8_vocab launches, none of topk_tail and the "
+                 f"unquantized path's xgate, pos_lstm and attn_lstm counts {base}: {got}")
+        if len(caps) != B or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{label}: {len(caps)} captions, metrics {metrics}")
+        print(f"{label} metrics", json.dumps(metrics))
+
+    app, mot = (torch.as_tensor(x, device=dev) for x in store.get_batch(np.arange(B)))
+    mask = torch.as_tensor(store.frame_mask(np.arange(B)), device=dev)
+
+    def run(beam, fused, quant):
+        set_fused_kernels(fused)
+        try:
+            tokens = make_fn(cfg, beam, vq if quant else None)(params, app, mot, mask)[0]
+        finally:
+            set_fused_kernels(None)
+        torch.cuda.synchronize()
+        return tokens
+
+    for beam, label in ((False, "greedy-int8"), (True, "beam-5-int8")):
+        set_compute_dtype("float32")
+        a, b = run(beam, None, True), run(beam, False, True)
+        for x in (a, b):
+            if x.shape != (B, MAX_LEN) or int(x.min()) < 0 or int(x.max()) >= VOCAB:
+                fail(f"{label}: tokens of shape {tuple(x.shape)} in [{int(x.min())}, {int(x.max())}]")
+        agree = (a == b).all(1).float().mean().item()
+        print(f"{label} caption agreement kernels vs plain [float32]: {agree:.4f}")
+        if agree < AGREE_MIN:
+            fail(f"{label} f32 caption agreement {agree:.4f} < {AGREE_MIN}")
+        set_compute_dtype("bfloat16")
+        rates = {"bf16": [], "int8": []}
+        for quant in (False, True, True, False):
+            t = time.perf_counter()
+            run(beam, None, quant)
+            rates["int8" if quant else "bf16"].append(B / (time.perf_counter() - t))
+        vs = (run(beam, None, True) == run(beam, None, False)).all(1).float().mean().item()
+        print(f"{label} [bfloat16, kernels, not gated] caption agreement with the bf16 projection "
+              f"{vs:.4f}; captions/s in turns: bf16 projection {rates['bf16']} int8 {rates['int8']}")
+    return k7[B * K]
+
+
+def tails_phase(params, dev) -> None:
+    """One beam-5 call per candidate tail that forms the full log-softmax
+    (grouped, flat, block), plain path, bf16 policy, unquantized: the
+    tokens must be equal. Prints each call's captions/s."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.ops.precision import set_compute_dtype
+
+    set_compute_dtype("bfloat16")
+    g = np.random.default_rng(3)
+    app = torch.as_tensor(g.normal(size=(B, T, params.encoder.xgate.wa.shape[0])), dtype=torch.float32,
+                          device=dev)
+    mot = torch.as_tensor(g.normal(size=(B, T, params.encoder.xgate.wm.shape[0])), dtype=torch.float32,
+                          device=dev)
+    out, rates = {}, {}
+    for mode in ("grouped", "flat", "block"):
+        fn = make_beam_caption_fn(K, MAX_LEN, MAX_LEN, fused=False, topk_mode=mode)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[mode] = fn(params, app, mot)[0]
+        torch.cuda.synchronize()
+        rates[mode] = B / (time.perf_counter() - t)
+    for mode in ("flat", "block"):
+        if not torch.equal(out[mode], out["grouped"]):
+            fail(f"beam-5 tail {mode}: tokens differ from grouped on "
+                 f"{int((out[mode] != out['grouped']).any(1).sum())} videos")
+    print(f"beam-5 tails [bfloat16, plain path]: grouped, flat and block give equal tokens; "
+          f"captions/s (one call each) {json.dumps(rates)}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -567,13 +777,18 @@ def main() -> None:
             if policy == "float32" and agree < AGREE_MIN:
                 fail(f"{label} f32 caption agreement {agree:.4f} < {AGREE_MIN}")
 
+    # the quantized decode path and beam's full log-softmax tails
+    k7 = int8_phase(params, cfg, store, labels, info, dev, counts)
+    tails_phase(params, dev)
+
     # the XE-training path: K5 against its plain version at the step's
     # shape, then the train steps
     n_rows = cfg.data.batch_size * cfg.data.caps_per_video_train * (MAX_LEN - 1)
     xent = check_xent(dev, n_rows, VOCAB)
     counts["xe-train"] = train_phase(cfg, dev)
 
-    banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu")
+    banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
+              "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
     if pulled:
         fail(f"the port pulled in {pulled}")
@@ -581,18 +796,26 @@ def main() -> None:
     src = "controllable_xgating_torch/csrc/"
     pallas = "controllable_xgating_tpu/ops/pallas/"
     kernel_rows = [  # name, source, the Pallas kernel it replaces, path, results
-        ("xgate", "xgate.cu", "xgate.py:52", "beam-5", (*results["xgate"], None)),
-        ("pos_lstm", "pos_lstm.cu", "pos_lstm.py:35", "beam-5", (*results["pos_lstm"], None)),
-        ("attn_lstm", "attn_lstm.cu", "attn_lstm.py:43", "beam-5",
+        ("xgate", "xgate.cu", pallas + "xgate.py:52", "beam-5", (*results["xgate"], None)),
+        ("pos_lstm", "pos_lstm.cu", pallas + "pos_lstm.py:35", "beam-5",
+         (*results["pos_lstm"], None)),
+        ("attn_lstm", "attn_lstm.cu", pallas + "attn_lstm.py:43", "beam-5",
          (*results["attn_lstm"], None)),
-        ("topk_tail", "topk_tail.cu", "topk_tail.py:66", "beam-5",
+        ("topk_tail", "topk_tail.cu", pallas + "topk_tail.py:66", "beam-5",
          (*results["topk_tail"], None)),
-        ("xent_fwd", "xent.cu", "xent.py:49", "xe-train", xent["xent_fwd"]),
-        ("xent_bwd", "xent.cu", "xent.py:60", "xe-train", xent["xent_bwd"]),
+        ("xent_fwd", "xent.cu", pallas + "xent.py:49", "xe-train", xent["xent_fwd"]),
+        ("xent_bwd", "xent.cu", pallas + "xent.py:60", "xe-train", xent["xent_bwd"]),
+        # no PyTorch call takes an int8 weight with column scales (the bf16
+        # projection it stands in for is printed by check_int8)
+        ("int8_vocab", "int8_vocab.cu", "experiments/int8_vocab_matmul.py:87", "beam-5-int8",
+         (*k7[:3], None)),
+        # no path launches K6: its launches are the beam-5 run's, 0
+        ("topk_extract", "topk_extract.cu", "experiments/pallas_logits_topk.py:50", "beam-5",
+         (*results["topk_extract"], None)),
     ]
-    bounds = {**caption_bounds(params), **xent_bounds(n_rows, VOCAB)}
+    bounds = {**caption_bounds(params), **xent_bounds(n_rows, VOCAB), **quant_bounds(params)}
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": src + f, "replaces": pallas + r,
+        {"name": n, "route": "cuda", "source": src + f, "replaces": r,
          "launches": counts[path][n], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
          "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": res[3]}
         for n, f, r, path, res in kernel_rows

@@ -28,36 +28,12 @@
 //      chunks' candidates on the same order, and the log-sum-exp combine.
 // Masked specials enter the top-K lists at -1e30, as in the Pallas kernel,
 // and are left out of the sum-exp, where they would add exp(-1e30 - m) = 0.
-#include "common.cuh"
+#include "topk.cuh"
 
 namespace cxg {
 
 constexpr int kTkRows = 32;     // TM = 4, 4 rows per warp
 constexpr int kRowsPerWarp = kTkRows / 8;
-constexpr int kKMax = 8;
-constexpr float kMaskNeg = -1e30f;
-constexpr int kPad = 0, kBos = 1, kUnk = 3;  // data/vocab.py
-
-// (va, ia, la) ranks before (vb, ib, lb): value desc, index asc, then lane
-__device__ __forceinline__ bool ranks_before(float va, int ia, int la, float vb, int ib,
-                                             int lb) {
-  return va > vb || (va == vb && (ia < ib || (ia == ib && la < lb)));
-}
-
-// warp-wide best (value, index, lane); every lane ends with the same answer
-__device__ __forceinline__ void warp_best(float& v, int& i, int& l) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    const int ol = __shfl_xor_sync(kFull, l, off);
-    if (ranks_before(ov, oi, ol, v, i, l)) {
-      v = ov;
-      i = oi;
-      l = ol;
-    }
-  }
-}
 
 inline size_t topk_chunk_smem_bytes() {
   return (size_t)(kTkRows * kBN + gemm_smem_floats<kTkRows / 8>()) * sizeof(float);
@@ -241,6 +217,12 @@ cudaError_t launch_topk_tail(const void* h, const void* w, const float* b, float
                                                      chunk_cols);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return launch_topk_merge(cand_v, cand_i, part_m, part_s, vals, idx, lse, rows, nchunks, k, st);
+}
+
+cudaError_t launch_topk_merge(const float* cand_v, const int* cand_i, const float* part_m,
+                              const float* part_s, float* vals, int* idx, float* lse, int rows,
+                              int nchunks, int k, cudaStream_t st) {
   const int rows_per_block = kThreads / 32;
   topk_merge_kernel<<<(rows + rows_per_block - 1) / rows_per_block, kThreads, 0, st>>>(
       cand_v, cand_i, part_m, part_s, vals, idx, lse, rows, nchunks, k);

@@ -1,22 +1,27 @@
 """Batched beam search, single model.
 
 Counterpart of `controllable_xgating_tpu/infer/beam.py` (`beam_search`,
-`make_beam_caption_fn`) for one model without diversity groups:
+`make_beam_caption_fn`, `row_topk_block`) for one model without diversity
+groups:
 
   * all B videos x K beams advance together as one [B*K] decoder batch;
-  * per step, a row-local top-K then a [B, K*K] merge pick the K best
-    continuations of each video; beam states are reordered by gathers;
+  * per step, the candidate tail picks the K best continuations of each
+    video; beam states are reordered by gathers;
   * finished beams survive by emitting PAD at zero cost, and a per-video
     best-finished register (score, tokens) is kept outside the pool, so a
     finished hypothesis evicted by later-decaying live beams is never lost;
   * only beam 0 is live at t=0, so the first step picks K distinct words.
 
-Two candidate tails, output-identical up to float rounding of the scores:
-`"lanes"` (the JAX package's name for the fused tail) takes the row-local
-top-K straight from the top-K kernel wrapper, which projects, masks and
-reduces without writing the [B*K, V] logits; `"grouped"` forms the full
-log-softmax in PyTorch. `"auto"` picks lanes whenever the kernel path is
-on. Ensembles, diverse beam and the flat/block tails are not ported yet.
+Four candidate tails, output-identical up to float rounding of the scores
+(the JAX package's names): `"lanes"` takes the row-local top-K straight
+from the top-K kernel wrapper, which projects, masks and reduces without
+writing the [B*K, V] logits; the other three form the full log-softmax in
+PyTorch: `"grouped"` takes a row-local top-K and merges the K*K survivors
+per video, `"block"` is grouped with the row stage prescreened by 128-wide
+block maxima (`row_topk_block`), and `"flat"` takes one top-K over the
+flattened [B, K*V] pool. `"auto"` picks lanes on the kernel path, and
+grouped with `vocab_q` (the weight-only int8 projection, which lanes does
+not take) or off it. Ensembles and diverse beam are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,11 +44,36 @@ from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk, topk
 from controllable_xgating_torch.ops.precision import compute_dtype
 
 NEG_INF = -1e30
+_BLOCK = 128  # prescreen window of row_topk_block
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, K, ...] -> x[b, idx[b, j], ...] for idx [B, K]."""
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def row_topk_block(x: torch.Tensor, k: int):
+    """Exact per-row `topk(x, k)` via a block-max prescreen (JAX
+    `row_topk_block`): only a row's k best 128-wide blocks can hold a top-k
+    element, so the exact top-k runs over those k*128 values. Kept blocks
+    are sorted ascending, so the pool is in index order and ties go to the
+    lower index as with `topk`; the tail window, clamped to end at v, has
+    the columns that slid in from the previous block masked to -inf."""
+    r, v = x.shape
+    nb = -(-v // _BLOCK)
+    if nb < k or v <= 4 * k * _BLOCK:
+        return topk(x, k)  # small rows: the prescreen cannot pay
+    pad = nb * _BLOCK - v
+    bm = torch.nn.functional.pad(x, (0, pad), value=-float("inf"))
+    bm = bm.reshape(r, nb, _BLOCK).amax(-1)  # [r, nb]
+    _, blk = topk(bm, k)
+    starts = blk.sort(dim=1).values * _BLOCK  # [r, k], in index order
+    clamped = starts.clamp(max=v - _BLOCK)
+    cols = clamped[:, :, None] + torch.arange(_BLOCK, device=x.device)  # [r, k, 128]
+    vals = x.gather(1, cols.reshape(r, -1)).reshape(r, k, _BLOCK)
+    vals = torch.where(cols >= starts[:, :, None], vals, -float("inf"))
+    scores, pos = topk(vals.reshape(r, k * _BLOCK), k)
+    return scores, cols.reshape(r, -1).gather(1, pos)
 
 
 def beam_search(
@@ -58,21 +88,26 @@ def beam_search(
     early_stop: bool = False,
     topk_mode: str = "auto",
     return_all: bool = False,
+    vocab_q=None,
 ):
     """Returns (tokens [B, max_len], scores [B]) for the best beam, or with
     `return_all=True` (tokens [B, K, max_len], scores [B, K]) best-first,
     where the best-finished register competes as a (K+1)-th candidate
     unless it duplicates a pool row. `early_stop=True` leaves the loop once
-    every beam has finished (one host sync per step)."""
+    every beam has finished (one host sync per step). `vocab_q` (a
+    `QuantVocabProj`) takes every step's vocab projection through the
+    weight-only int8 path; the lanes tail does not take it."""
     b = summary.shape[0]
     v = params.w_out.shape[-1]
     k = beam_size
     dev = summary.device
     if topk_mode == "auto":
-        topk_mode = "lanes" if fused else "grouped"
-    if topk_mode not in ("lanes", "grouped"):
+        topk_mode = "lanes" if fused and vocab_q is None else "grouped"
+    if topk_mode not in ("lanes", "grouped", "block", "flat"):
         raise ValueError(f"unknown topk_mode {topk_mode!r}")
     lanes = topk_mode == "lanes"
+    if lanes and vocab_q is not None:
+        raise ValueError('topk_mode="lanes" does not support vocab_q')
     is_pad = torch.arange(v, device=dev) == PAD
     # a finished row's candidates: the PAD continuation at zero cost
     cont = torch.where(is_pad, 0.0, NEG_INF)
@@ -119,15 +154,22 @@ def beam_search(
             s1_idx = torch.where(fin_col, cont_i, top_i)
         else:
             logits, h_new, c_new, _ = decode_step(
-                params, ctx_k, tok.reshape(b * k), h, c, fused=fused, kernel_weights=kw
+                params, ctx_k, tok.reshape(b * k), h, c, fused=fused, kernel_weights=kw,
+                vocab_q=vocab_q,
             )
             logp = torch.log_softmax(mask_special_tokens(logits.float(), block_unk), -1)
             logp = torch.where(fin_col, cont, logp)
-            s1_scores, s1_idx = topk(cum.reshape(b * k)[:, None] + logp, k)
-        # merge the K*K survivors per video
-        top_scores, m_idx = topk(s1_scores.reshape(b, k * k), k)  # [B, K]
-        beam_idx = m_idx // k
-        new_tok = torch.gather(s1_idx.reshape(b, k * k), 1, m_idx)
+            cand = cum.reshape(b * k)[:, None] + logp  # [B*K, V]
+            if topk_mode == "flat":
+                top_scores, top_idx = topk(cand.reshape(b, k * v), k)  # [B, K]
+                beam_idx, new_tok = top_idx // v, top_idx % v
+            else:
+                s1_scores, s1_idx = (row_topk_block if topk_mode == "block" else topk)(cand, k)
+        if topk_mode != "flat":
+            # merge the K*K survivors per video
+            top_scores, m_idx = topk(s1_scores.reshape(b, k * k), k)  # [B, K]
+            beam_idx = m_idx // k
+            new_tok = torch.gather(s1_idx.reshape(b, k * k), 1, m_idx)
 
         finished_g = torch.gather(finished, 1, beam_idx)
         lengths_g = torch.gather(lengths, 1, beam_idx)

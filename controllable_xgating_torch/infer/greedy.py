@@ -42,8 +42,11 @@ def greedy_decode(
     fused: Optional[bool] = None,
     block_unk: bool = False,
     early_stop: bool = False,
+    vocab_q=None,
 ) -> torch.Tensor:
-    """Deterministic argmax rollout -> tokens [B, max_len] int64."""
+    """Deterministic argmax rollout -> tokens [B, max_len] int64. `vocab_q`
+    (a `QuantVocabProj`) takes every step's vocab projection through the
+    weight-only int8 path."""
     b = summary.shape[0]
     dev = summary.device
     h, c = init_decoder_state(params, summary)
@@ -54,7 +57,9 @@ def greedy_decode(
     for t in range(max_len):
         if early_stop and not bool(alive.any()):
             break
-        logits, h, c, _ = decode_step(params, ctx, tok, h, c, fused=fused, kernel_weights=kw)
+        logits, h, c, _ = decode_step(
+            params, ctx, tok, h, c, fused=fused, kernel_weights=kw, vocab_q=vocab_q
+        )
         logits = mask_special_tokens(logits.float(), block_unk)
         nxt = torch.argmax(logits, dim=-1)
         nxt = torch.where(alive, nxt, torch.full_like(nxt, PAD))

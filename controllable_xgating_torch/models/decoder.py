@@ -5,9 +5,8 @@ additive attention over the encoder memory gives a visual context; a
 sigmoid gate over [h ; emb(w)] mixes it with the projected POS feature
 psi; the LSTM cell consumes [emb(w) ; guide] and projects to vocab logits.
 h and c are carried in f32. `decoder_forward` is the teacher-forced pass
-of XE training.
-
-The experiments/ `vocab_q` hook of the JAX `decode_step` is not ported.
+of XE training. `decode_step`'s `vocab_q` hook takes a weight-only int8
+vocab projection (`experiments/int8_vocab_matmul.py`).
 """
 
 from __future__ import annotations
@@ -121,18 +120,26 @@ def decode_step(
     fused: Optional[bool] = None,
     return_hidden: bool = False,
     kernel_weights=None,
+    vocab_q=None,
 ):
     """One decode step. Returns (logits [B, V], h', c', alpha [B, T]).
 
     `fused=True` routes attention + gate + cell through the attn_lstm
     kernel wrapper; a decode loop passes that wrapper's weights, cast once
-    by `attn_lstm_weights`, as `kernel_weights`. `return_hidden=True` skips
-    the vocab projection and returns h' in the logits slot, for a caller
-    that fuses the projection into its own tail (beam's top-K kernel)."""
+    by `attn_lstm_weights`, as `kernel_weights`. `vocab_q` (a
+    `QuantVocabProj`) swaps the vocab projection for the weight-only int8
+    one, through the int8_vocab kernel wrapper when `fused`.
+    `return_hidden=True` skips the vocab projection and returns h' in the
+    logits slot, for a caller that fuses the projection into its own tail
+    (beam's top-K kernel); it wins over `vocab_q`."""
 
     def project(h_out):
         if return_hidden:
             return h_out
+        if vocab_q is not None:
+            from controllable_xgating_torch.experiments.int8_vocab_matmul import vocab_proj_int8
+
+            return vocab_proj_int8(h_out, vocab_q, fused=bool(fused))
         return mm(h_out, params.w_out) + params.b_out.float()
 
     e = params.embed[token]

@@ -7,7 +7,9 @@ PyTorch version for CPU tensors, and counts its launches in `.launches`.
 from __future__ import annotations
 
 from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_step_kernel
+from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_proj
 from controllable_xgating_torch.ops.kernels.pos_lstm import pos_lstm_step_kernel
+from controllable_xgating_torch.ops.kernels.topk_extract import logits_topk_extract_kernel
 from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk
 from controllable_xgating_torch.ops.kernels.xent import xent_bwd_kernel, xent_fwd_kernel
 from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
@@ -19,6 +21,8 @@ WRAPPERS = {
     "topk_tail": logits_topk,
     "xent_fwd": xent_fwd_kernel,
     "xent_bwd": xent_bwd_kernel,
+    "int8_vocab": int8_vocab_proj,
+    "topk_extract": logits_topk_extract_kernel,
 }
 
 

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels under `csrc/`.
 
-nvcc compiles every `csrc/*.cu` for `sm_90a` into one shared library with a
+nvcc compiles every `csrc/*.cu` for `sm_90a`, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, loaded through `ctypes` (no PyTorch headers, so a build
 takes seconds). The build runs at first use, from the package's own
 sources, into `build/kernels/` of the checkout that holds the package; the
@@ -30,7 +31,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 CSRC = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,16 +74,28 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(build_dir(), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(build_dir(), "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    tmpdir = tempfile.mkdtemp(dir=build_dir())
+    try:
+        objs = [os.path.join(tmpdir, os.path.basename(src) + ".o") for src in srcs]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+        tmp = os.path.join(tmpdir, "lib.so")
+        if all(rc == 0 for _, _, rc in logs):
+            cmd = [_nvcc(), "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+        with open(os.path.join(build_dir(), "build.log"), "w") as f:
+            for cmd, text, _ in logs:
+                f.write(" ".join(cmd) + "\n" + text)
+        failed = [(cmd, text, rc) for cmd, text, rc in logs if rc != 0]
+        if failed:
+            cmd, text, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}) on {cmd[-1]}:\n{text[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
 
 
@@ -93,8 +106,11 @@ _SIGNATURES = {
     "cxg_topk_tail_fwd": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "cxg_xent_fwd": [_P] * 5 + [_I] * 2 + [_P],
     "cxg_xent_bwd": [_P] * 7 + [_I] * 2 + [_P],
+    "cxg_int8_vocab_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "cxg_topk_extract_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_P],
     "cxg_xgate_smem_bytes": [_I],
     "cxg_attn_smem_bytes": [_I] * 3,
+    "cxg_topk_extract_smem_bytes": [_I],
 }
 
 

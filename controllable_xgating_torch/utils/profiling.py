@@ -7,7 +7,9 @@ At MSR-VTT width (`configs/msrvtt.json`, vocab 10000, 35 POS tags), random
 weights from seed 0, bf16 policy, first through the kernels, then through
 the plain path:
   caption: beam-5 and greedy over 256 videos, seeded features with every
-    frame valid, early stop off so that every call runs all 28 steps;
+    frame valid, early stop off so that every call runs all 28 steps; then
+    the same two with the weight-only int8 vocab projection (`vocab_q`,
+    the entry point of `tools/quant_ab.py`; beam takes the grouped tail);
   train: one joint-stage XE step (`make_xe_train_step`) on a batch of 64
     videos x 5 seeded captions of 27 words (no PAD), dropout 0.5, the
     batch already on the card.
@@ -69,11 +71,14 @@ def caption_calls(cfg, dev):
     current kernel setting."""
     import numpy as np
 
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
     from controllable_xgating_torch.infer.beam import make_beam_caption_fn
     from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
     from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.tools.quant_ab import make_fn
 
     params = init_captioner(cfg, seed=0, device=dev)
+    vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
     rng = np.random.default_rng(0)
     feats = (
         torch.as_tensor(rng.normal(size=(B, T, cfg.model.app_dim)).astype(np.float32), device=dev),
@@ -83,6 +88,8 @@ def caption_calls(cfg, dev):
     return [
         ("beam5", make_beam_caption_fn(K, MAX_LEN, MAX_LEN, early_stop=False), (params, *feats)),
         ("greedy", make_greedy_caption_fn(MAX_LEN, MAX_LEN, early_stop=False), (params, *feats)),
+        ("beam5_int8", make_fn(cfg, True, vq), (params, *feats)),
+        ("greedy_int8", make_fn(cfg, False, vq), (params, *feats)),
     ]
 
 

@@ -8,7 +8,9 @@ file imports no jax, so it also runs where only torch is installed:
 
 Tolerances: f32 operands rtol 1e-4, atol 1e-5 (the JAX package's CPU
 kernel bound x10, for the card's other summation order); bf16 operands
-2e-2, the JAX package's own bf16 kernel bound.
+2e-2, the JAX package's own bf16 kernel bound. The int8 vocab projection
+takes bf16 operands under either policy and is held at the f32 bound:
+kernel and plain version multiply the same operands.
 """
 
 import pytest
@@ -135,7 +137,76 @@ def test_topk_tail_kernel_breaks_ties_by_lower_index(dev):
     assert idx.tolist() == [[2, 4, 5, 6, 7]] * 2
 
 
+@pytest.mark.parametrize("policy,tol", POLICIES)
+@pytest.mark.parametrize("r,hd,v,k", [(35, 48, 300, 5), (9, 48, 2500, 3), (1280, 512, 10000, 5)])
+def test_topk_extract_kernel(dev, policy, tol, r, hd, v, k):
+    """K6 against its plain version, and against the beam tail's kernel
+    (K4) on the same inputs: the same ids on rows clear of ties."""
+    from controllable_xgating_torch.ops.kernels.topk_extract import (
+        logits_topk_extract_kernel,
+        logits_topk_extract_plain,
+    )
+    from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk
+
+    _, gd = gen(dev)
+    h = torch.tanh(torch.randn(r, hd, generator=gd, device=dev))
+    w = torch.randn(hd, v, generator=gd, device=dev) * hd ** -0.5
+    b = torch.randn(v, generator=gd, device=dev) * 0.1
+    with precision(policy):
+        vals, idx, lse = logits_topk_extract_kernel(h, w, b, k)
+        rv, ri, rl = logits_topk_extract_plain(h, w, b, k + 1)
+        kv, ki, kl = logits_topk(h, w, b, k)
+    close(vals, rv[:, :k], tol)
+    close(lse, rl, tol)
+    close(vals, kv, tol)
+    close(lse, kl, tol)
+    clear = rv[:, k - 1] - rv[:, k] > tol["atol"] + tol["rtol"] * rv[:, k - 1].abs()
+    for ids in (ri[:, :k], ki):
+        same = (idx.sort(1).values == ids.sort(1).values).all(1)
+        assert bool(same[clear].all())
+    assert kernels.launch_counts()["topk_extract"] == 1
+
+
+def test_topk_extract_kernel_breaks_ties_by_lower_index(dev):
+    from controllable_xgating_torch.ops.kernels.topk_extract import logits_topk_extract_kernel
+
+    # equal logits across vocab chunks: ids come out ascending; PAD and BOS never win
+    h = torch.ones(2, 8, device=dev)
+    w = torch.zeros(8, 3000, device=dev)
+    b = torch.zeros(3000, device=dev)
+    b[[0, 1, 7, 40, 1500, 2999]] = 1.0
+    vals, idx, _ = logits_topk_extract_kernel(h, w, b, 4)
+    assert idx.tolist() == [[7, 40, 1500, 2999]] * 2
+    vals, idx, _ = logits_topk_extract_kernel(h, w, torch.zeros(3000, device=dev), 5)
+    assert idx.tolist() == [[2, 3, 4, 5, 6]] * 2
+
+
+@pytest.mark.parametrize("m,k,n", [(24, 64, 1300), (256, 512, 10000), (1280, 512, 10000),
+                                   (77, 96, 130)])
+def test_int8_vocab_kernel(dev, m, k, n):
+    """K7 against its plain version: both multiply the same bf16 operands
+    and differ only in summation order (f32 tolerance). The plain version
+    ignores the compute policy, so does the kernel."""
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_plain, int8_vocab_proj
+
+    _, gd = gen(dev)
+    q = quantize_vocab_proj(torch.randn(k, n, generator=gd, device=dev) * k ** -0.5,
+                            torch.randn(n, generator=gd, device=dev) * 0.1)
+    x = torch.tanh(torch.randn(m, k, generator=gd, device=dev))
+    ref = int8_vocab_plain(x, q.wq, q.scale, q.bias)[:, :n]
+    for policy, _ in POLICIES:
+        with precision(policy):
+            out = int8_vocab_proj(x, q.wq, q.scale, q.bias, n)
+        assert out.shape == (m, n) and out.dtype == torch.float32
+        close(out, ref, POLICIES[0][1])
+    assert kernels.launch_counts()["int8_vocab"] == 2
+
+
 def test_wrappers_raise_on_shapes_they_do_not_take(dev):
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_proj
+    from controllable_xgating_torch.ops.kernels.topk_extract import logits_topk_extract_kernel
     from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk
     from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
     from controllable_xgating_torch.ops.xgate import init_xgate
@@ -143,6 +214,11 @@ def test_wrappers_raise_on_shapes_they_do_not_take(dev):
     h = torch.randn(4, 8, device=dev)
     with pytest.raises(ValueError, match="k <="):
         logits_topk(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
+    with pytest.raises(ValueError, match="k <="):
+        logits_topk_extract_kernel(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
+    q = quantize_vocab_proj(torch.randn(8, 100, device=dev), torch.zeros(100, device=dev))
+    with pytest.raises(ValueError, match="K % 32"):  # depth not a multiple of the stage
+        int8_vocab_proj(h, q.wq, q.scale, q.bias, q.n)
     w = init_xgate(torch.Generator().manual_seed(0), 8, 8, 1024).to(dev)  # too wide for smem
     with pytest.raises(ValueError, match="shared memory"):
         xgate_fuse_kernel(w, torch.randn(4, 8, device=dev), torch.randn(4, 8, device=dev))
@@ -286,3 +362,45 @@ def test_caption_path_kernels_match_plain_path(dev, beam):
     counts = kernels.launch_counts()
     assert counts["xgate"] == 1 and counts["pos_lstm"] >= 1 and counts["attn_lstm"] >= 1
     assert counts["topk_tail"] == (counts["attn_lstm"] if beam else 0)
+
+
+@pytest.mark.parametrize("beam", [True, False], ids=["beam5", "greedy"])
+def test_quantized_path_kernels_match_plain_path(dev, beam):
+    """The vocab_q path, f32: the kernels (attn_lstm and int8_vocab, one
+    launch each per step) against the plain path, from the same weights."""
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.infer.beam import beam_search
+    from controllable_xgating_torch.infer.greedy import greedy_decode
+    from controllable_xgating_torch.models.captioner import encode_for_inference, init_captioner
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.utils.config import Config
+
+    cfg = Config().replace_flat({
+        "model.app_dim": 40, "model.motion_dim": 24, "model.hidden_dim": 64,
+        "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
+        "model.vocab_size": 500, "model.pos_vocab_size": 20, "model.num_frames": 6,
+    })
+    params = init_captioner(cfg, seed=3, device=dev)
+    gd = torch.Generator(device=dev).manual_seed(4)
+    app = torch.randn(8, 6, 40, generator=gd, device=dev)
+    mot = torch.randn(8, 6, 24, generator=gd, device=dev)
+    vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
+
+    def run(fused):
+        ctx, summary, _ = encode_for_inference(params, app, mot, max_pos_len=8, fused=fused)
+        if beam:
+            return beam_search(params.decoder, ctx, summary, 5, 10, fused=fused, vocab_q=vq)[0]
+        return greedy_decode(params.decoder, ctx, summary, 10, fused=fused, vocab_q=vq)
+
+    with precision("float32"), torch.inference_mode():
+        tokens = run(True)
+        counts = kernels.launch_counts()
+        try:
+            set_fused_kernels(False)
+            ptokens = run(False)
+        finally:
+            set_fused_kernels(None)
+    assert (tokens == ptokens).all(1).float().mean().item() >= 0.875
+    assert counts["int8_vocab"] == counts["attn_lstm"] == 10
+    assert counts["topk_tail"] == 0
+    assert kernels.launch_counts() == counts  # the plain path launched nothing

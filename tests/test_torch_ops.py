@@ -309,7 +309,8 @@ def test_kernel_sources_and_library_name():
     from controllable_xgating_torch.ops.kernels import build
 
     assert {os.path.basename(p) for p in build._sources()[0]} == {
-        "attn_lstm.cu", "pos_lstm.cu", "topk_tail.cu", "xent.cu", "xgate.cu"}
+        "attn_lstm.cu", "int8_vocab.cu", "pos_lstm.cu", "topk_extract.cu", "topk_tail.cu",
+        "xent.cu", "xgate.cu"}
     name = os.path.basename(build.library_path())
     assert name.startswith("libcxg_kernels_") and name.endswith(".so")
     assert build.build_dir() == os.path.join(REPO, "build", "kernels")
@@ -347,7 +348,8 @@ def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
     mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
     mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
     assert mods and not [m for m in mods if m.split(".")[0] in (
-        "jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu")]
+        "jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments", "tools",
+        "bench")]
 
 
 def test_port_imports_no_jax_flax_orbax_h5py():
@@ -358,7 +360,8 @@ def test_port_imports_no_jax_flax_orbax_h5py():
         "import controllable_xgating_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "banned = ('jax', 'flax', 'optax', 'orbax', 'h5py', 'controllable_xgating_tpu')\n"
+        "banned = ('jax', 'flax', 'optax', 'orbax', 'h5py', 'controllable_xgating_tpu',\n"
+        "          'experiments', 'tools', 'bench')\n"
         "bad = sorted({m for m in sys.modules if m.split('.')[0] in banned})\n"
         "assert len(mods) >= 30 and not bad, (len(mods), bad)\n"
         "from controllable_xgating_torch.ops.kernels import build\n"

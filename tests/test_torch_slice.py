@@ -118,7 +118,7 @@ def test_plain_path_equals_kernel_path_on_cpu(setup):
 def test_beam_rejects_unknown_topk_mode(setup):
     _, tp, _, t_in = setup
     with pytest.raises(ValueError, match="topk_mode"):
-        t_beam.make_beam_caption_fn(3, MAX_POS, 4, topk_mode="flat")(tp, *t_in)
+        t_beam.make_beam_caption_fn(3, MAX_POS, 4, topk_mode="sorted")(tp, *t_in)
 
 
 @pytest.fixture(scope="module")
