@@ -14,7 +14,10 @@ Phases, each fatal on failure:
      path gives it (MSR-VTT width: 256 videos x 26 frames, beam 5), under
      the f32 policy (rtol 1e-4, atol 1e-5) and the bf16 policy (a bound
      per kernel, `BF16_TOL`), and time both with CUDA events; K6 is also
-     held against the beam tail's kernel (K4) on the same inputs;
+     held against the beam tail's kernel (K4) on the same inputs; under
+     bf16, K3 and K4 again at greedy's 256 rows (timed beside beam's
+     1280), and cuBLAS's bare bf16 projection h @ w_out at the beam shape
+     as a yardstick for K4's wgmma mainloop;
   4. caption 256 seeded videos with random seeded weights under the bf16
      policy through `evaluate_split` with `make_beam_caption_fn` (beam 5),
      then with `make_greedy_caption_fn`; every kernel of each path must
@@ -161,9 +164,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_cases(params, dev):
+def kernel_cases(params, dev, r: int = B * K):
     """(name, kernel call, plain call) at the path's shapes, with seeded
-    inputs, built under the current policy. The kernels get their weights
+    inputs, built under the current policy; the decoder-step and top-K
+    kernels at `r` rows (beam-5's by default). The kernels get their weights
     cast once beforehand, as the caption loops give them."""
     import torch
 
@@ -187,7 +191,6 @@ def kernel_cases(params, dev):
     e_pos = pos.embed[ri(4, POS_VOCAB, (B,))]
     sg = _summary_gates(pos, torch.tanh(rn(B, he)))
     h_pos, c_pos = torch.tanh(rn(B, hp)), rn(B, hp)
-    r = B * K
     mask = (torch.arange(T, device=dev)[None] < ri(T // 2, T + 1, (r, 1))).float()
     ctx = make_decode_context(dec, torch.tanh(rn(r, T, he)), torch.tanh(rn(r, dec.w_psi.shape[0])), mask)
     h_dec, c_dec = init_decoder_state(dec, torch.tanh(rn(r, he)))
@@ -196,6 +199,7 @@ def kernel_cases(params, dev):
     step = (dec, e_dec, h_dec, c_dec, ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask)
     pos_w, step_w = pos_lstm.pos_lstm_weights(pos), attn_lstm.attn_lstm_weights(dec)
     w_out = dec.w_out.to(compute_dtype())
+    w_op = topk_tail.topk_tail_weights(dec.w_out)
     return [
         ("xgate", lambda: xgate.xgate_fuse_kernel(enc.xgate, xa, xm),
          lambda: xgate.xgate_fuse_plain(enc.xgate, xa, xm)),
@@ -203,7 +207,7 @@ def kernel_cases(params, dev):
          lambda: pos_lstm.pos_lstm_step_plain(pos, e_pos, sg, h_pos, c_pos)),
         ("attn_lstm", lambda: attn_lstm.attn_lstm_step_kernel(*step, step_w),
          lambda: attn_lstm.attn_lstm_step_plain(*step)),
-        ("topk_tail", lambda: topk_tail.logits_topk(h_out, w_out, dec.b_out, K),
+        ("topk_tail", lambda: topk_tail.logits_topk(h_out, dec.w_out, dec.b_out, K, False, w_op),
          lambda: topk_tail.logits_topk_plain(h_out, dec.w_out, dec.b_out, K)),
         ("topk_extract", lambda: topk_extract.logits_topk_extract_kernel(h_out, w_out, dec.b_out, K),
          lambda: topk_extract.logits_topk_extract_plain(h_out, dec.w_out, dec.b_out, K)),
@@ -248,6 +252,14 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
         out[name] = (err, ms, plain_ms)
+        if name == "topk_tail" and policy == "bfloat16":
+            # how close K4's mainloop gets to cuBLAS on the bare projection
+            # (not K4's function: no bias, mask, top-K or lse; the logits go
+            # to device memory)
+            h16, w16 = tail_inputs[0].bfloat16(), tail_inputs[1].bfloat16()
+            print(f"kernel topk_tail [{policy}]: cuBLAS h.bfloat16() @ w_out.bfloat16() "
+                  f"{list(h16.shape)} x {list(w16.shape)}: {cuda_ms(lambda: h16 @ w16):.4f} ms "
+                  f"(a diagnostic, not K4's function)")
     # K6 (iterative extraction) against K4 (per-lane insertion) on the same
     # inputs: values and lse within the tolerance, ids equal on clear rows
     (ev, ei, el), (kv, ki, kl) = tails["topk_extract"], tails["topk_tail"]
@@ -261,6 +273,38 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
           f"all {int(clear.sum())} clear rows; kernel ms {out['topk_extract'][1]:.4f} vs "
           f"{out['topk_tail'][1]:.4f}")
     return out
+
+
+def check_greedy_rows(params, dev, beam: dict) -> None:
+    """K3 and K4 under the bf16 policy at greedy's R = 256 rows (256
+    videos, one beam each), held to BF16_TOL as at the beam shape (top-K
+    ids on clear rows too), timed beside the beam shape's R = 1280 from
+    `beam` ({name: (max_abs_err, ms, plain_ms)})."""
+    import torch
+
+    from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk_plain
+
+    cases, tail_inputs = kernel_cases(params, dev, r=B)
+    rv, ri, _ = logits_topk_plain(*tail_inputs, K + 1)
+    for name, kern, plain in cases:
+        if name not in ("attn_lstm", "topk_tail"):
+            continue
+        tol = BF16_TOL[name]
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "topk_tail":
+            clear, same = ids_agree(got[1], rv, ri, tol)
+            if not bool(same[clear].all()):
+                fail(f"topk_tail [bfloat16, {B} rows]: ids differ on "
+                     f"{int((~same & clear).sum())} clear rows")
+            got, ref = (got[0], got[2]), (ref[0], ref[2])
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        if not all(bool(torch.isfinite(a).all()) and torch.allclose(a.float(), b.float(), **tol)
+                   for a, b in zip(got, ref)):
+            fail(f"{name} [bfloat16, {B} rows]: max |kernel - plain| = {err:.3e} outside {tol}")
+        print(f"kernel {name} [bfloat16, {B} rows (greedy)]: max_abs_err {err:.3e}  kernel "
+              f"{cuda_ms(kern):.4f} ms  plain {cuda_ms(plain):.4f} ms; at {B * K} rows (beam-5) "
+              f"kernel {beam[name][1]:.4f} ms")
 
 
 def ids_agree(idx, rv, ri, tol, other=None):
@@ -727,6 +771,7 @@ def main() -> None:
     check_kernels(params, dev, "float32", {n: F32_TOL for n in BF16_TOL})
     set_compute_dtype("bfloat16")
     results = check_kernels(params, dev, "bfloat16", BF16_TOL)
+    check_greedy_rows(params, dev, results)
 
     # the main path, bf16 policy, kernels on: beam 5, then greedy, each
     # through evaluate_split, counting launches around each run

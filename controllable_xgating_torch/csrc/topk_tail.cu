@@ -9,25 +9,39 @@
 //
 // What bounds it on the card: per beam step (R = 1280, Hd = 512,
 // V = 10000) the projection is 13 GFLOP over a 10 MB bf16 weight, so it is
-// compute-bound (this version: by tile_gemm's staging loop, each 32-row
-// tile re-reading the weight from L2); unfused, the f32 logits
-// (51 MB) would be written, then read back by the mask, the log-softmax
-// and the top-k.
+// bound by the tensor cores (13 us at the bf16 peak); unfused, the f32
+// logits (51 MB) would be written, then read back by the mask, the
+// log-softmax and the top-k.
 //
-// Design: two kernels on one stream.
-//   1. topk_chunk_kernel, one block per (32-row tile, 1024-column vocab
-//      chunk): logits in 128-column tiles through tile_gemm into shared
-//      memory; each warp owns 4 rows and each lane keeps, per row, a sorted
-//      top-K by insertion and an online (max, sum-exp) over the columns it
-//      sees (col = lane mod 32, increasing, so the incumbent of an equal
-//      value always has the lower index); then K rounds of warp arg-max on
-//      (value desc, index asc) merge the 32 lane lists into the chunk's
-//      top-K, and a warp reduction merges (max, sum-exp). Columns >= V
-//      (V = 10000 is ragged) are skipped.
-//   2. topk_merge_kernel, one warp per row: K rounds of arg-max over the
-//      chunks' candidates on the same order, and the log-sum-exp combine.
-// Masked specials enter the top-K lists at -1e30, as in the Pallas kernel,
-// and are left out of the sum-exp, where they would add exp(-1e30 - m) = 0.
+// Design: a chunk kernel, one block per (64-row tile, CHUNK_COLS-column
+// vocab chunk), then a merge kernel, on one stream.
+//   bf16 policy, topk_chunk_wgmma_kernel (two warpgroups): the row tile
+//     of h stays resident in shared memory (64 x Hd bf16, 64 KB at
+//     Hd = 512); the chunk's columns of w_out, stored K-major ([V, Hd],
+//     transposed once per caption call), stream through a 3-stage TMA
+//     ring in [128, 64] tiles, and each warpgroup multiplies 64 of a
+//     tile's columns with wgmma m64n64k16 (hopper_gemm.cuh); 113 KB of
+//     shared memory, so two blocks share an SM. The epilogue works on the
+//     accumulator registers, no logits tile: each thread owns 2 rows x 16
+//     columns of every tile and keeps, per row, an online (max, sum-exp)
+//     and a sorted top-K by insertion, visiting its columns in increasing
+//     id with a strict > (the incumbent keeps ties, so the lower id wins);
+//     a value below the largest K-th value of the 4 lists of its row's
+//     quad is skipped, as it cannot win. At the chunk's end each quad
+//     merges its 4 lists on (value desc, index asc), and one thread per
+//     row merges the two warpgroups' lists through shared memory.
+//   f32 policy, topk_chunk_kernel: the same contract on tile_gemm's SIMT
+//     products (full f32, no TF32), one block per (32-row tile, chunk);
+//     each warp owns 4 rows and each lane a top-K per row over the columns
+//     lane mod 32 of a shared-memory logits tile, merged by warp arg-max.
+//   topk_merge_kernel, one warp per row: K rounds of arg-max over the
+//     chunks' candidates on the same order, and the log-sum-exp combine.
+// Columns >= V (V = 10000 is ragged) are skipped. Masked specials enter
+// the top-K lists at -1e30, as in the Pallas kernel, and are left out of
+// the sum-exp, where they would add exp(-1e30 - m) = 0.
+#include "hopper_gemm.cuh"
+
+#include <type_traits>
 #include "topk.cuh"
 
 namespace cxg {
@@ -156,6 +170,217 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kTkStages = 3;  // ring of [128, 64] w tiles
+constexpr int kTkWgs = 2;     // consumer warpgroups, each on 64 columns of a 128-column tile
+constexpr int kTkThreads = kTkWgs * hop::kThreads;
+constexpr int kTkCols = hop::kTileN / kTkWgs;
+
+__host__ __device__ inline int topk_wgmma_tile_bytes(int hd) {
+  const int nk = (hd + hop::kTileK - 1) / hop::kTileK;
+  return nk * hop::kATileBytes + kTkStages * hop::kBTileBytes;
+}
+
+inline size_t topk_wgmma_smem_bytes(int hd) {
+  return hop::smem_request(topk_wgmma_tile_bytes(hd));
+}
+
+// (v, i, l) of the best of the 4 lanes of a quad, on (value desc, index asc)
+__device__ __forceinline__ void quad_best(float& v, int& i, int& l) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
+    const int ol = __shfl_xor_sync(kFull, l, off);
+    if (ranks_before(ov, oi, ol, v, i, l)) {
+      v = ov;
+      i = oi;
+      l = ol;
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+// bf16 policy, top-K: h [rows, hd] and w_t = w_out^T [v, hd], both
+// K-major, read through TMA descriptors (hd % 8 == 0); chunk_cols % 128
+// == 0. Two warpgroups share h's resident row tile and every w tile of
+// the ring, each multiplying 64 of its 128 columns (m64n64k16), so that
+// an SM holds two blocks: 16 warps to hide the epilogue's latency.
+template <int K>
+__global__ void __launch_bounds__(kTkThreads, 2)
+    topk_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
+                            const __grid_constant__ CUtensorMap map_w, const float* __restrict__ b,
+                            float* __restrict__ cand_v, int* __restrict__ cand_i,
+                            float* __restrict__ part_m, float* __restrict__ part_s, int rows,
+                            int hd, int v, int block_unk, int chunk_cols) {
+  constexpr int S = kTkStages;
+  extern __shared__ __align__(1024) uint8_t tk_smem_raw[];
+  const int nk = (hd + hop::kTileK - 1) / hop::kTileK;
+  uint64_t* full;
+  uint8_t* sa = hop::smem_layout(tk_smem_raw, topk_wgmma_tile_bytes(hd), &full);
+  uint8_t* ring = sa + nk * hop::kATileBytes;
+  uint64_t* a_bar = full + S;
+  const int chunk = blockIdx.x, nchunks = gridDim.x;
+  const int m0 = blockIdx.y * hop::kTileM;
+  const int c_begin = chunk * chunk_cols;
+  const int c_end = min(v, c_begin + chunk_cols);
+  const int ntiles = (c_end - c_begin + hop::kTileN - 1) / hop::kTileN;
+  const int total = ntiles * nk;  // w tiles this block streams, N-tile major
+  const int wg = threadIdx.x / hop::kThreads;
+  const int lane = threadIdx.x & 31;
+  const CUtensorMap* mw = &map_w;
+
+  auto load = [=](int j) {
+    uint64_t* bar = full + j % S;
+    hop::mbar_expect_tx(bar, hop::kBTileBytes);
+    hop::tma_load(ring + (j % S) * hop::kBTileBytes, mw, bar, (j % nk) * hop::kTileK,
+                  c_begin + (j / nk) * hop::kTileN);
+  };
+  hop::ring_start<S>(full, 1, total, load);
+  if (threadIdx.x == 0) {  // h's row tile, once
+    hop::mbar_expect_tx(a_bar, nk * hop::kATileBytes);
+    for (int kt = 0; kt < nk; ++kt)
+      hop::tma_load(sa + kt * hop::kATileBytes, &map_h, a_bar, kt * hop::kTileK, m0);
+  }
+
+  // per owned row (acc_row(i) for (i >> 1) & 1 == r): a top-K sorted by
+  // (value desc, index asc), its K-th value, and the online (max, sum-exp)
+  float tv[2][K], thr[2], m[2], s[2];
+  int ti[2][K];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int slot = 0; slot < K; ++slot) {
+      tv[r][slot] = -INFINITY;
+      ti[r][slot] = 0x7fffffff;
+    }
+    thr[r] = -INFINITY;
+    m[r] = -INFINITY;
+    s[r] = 0.0f;
+  }
+  hop::mbar_wait(a_bar, 0);
+
+  float acc[kTkCols / 2];
+  for (int nt = 0; nt < ntiles; ++nt) {
+    hop::mma_tile<S>(
+        acc, nt * nk, nk, total, ring, hop::kBTileBytes, wg * kTkCols * hop::kTileK * 2, full,
+        false, [=](int kt, int) { return sa + kt * hop::kATileBytes; }, load);
+    const int col0 = c_begin + nt * hop::kTileN + wg * kTkCols;
+    // A value below the largest K-th value of the quad's 4 lists (all from
+    // this row) has K values of the row above it: it cannot win.
+    const float qthr[2] = {quad_max(thr[0]), quad_max(thr[1])};
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kTkCols / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = col0 + hop::acc_col(i);
+      float x = -INFINITY;  // past the chunk: never enters a list
+      if (col < c_end) {
+        const bool special = col == kPad || col == kBos || (block_unk && col == kUnk);
+        x = special ? kMaskNeg : acc[i] + b[col];
+        if (!special) tmax[r] = fmaxf(tmax[r], x);
+      }
+      acc[i] = x;
+      if (x > thr[r] && x >= qthr[r]) {  // strict: an equal value of a higher id stays out
+        float cv = x;
+        int ci = col;
+#pragma unroll
+        for (int slot = 0; slot < K; ++slot) {
+          const bool swap = cv > tv[r][slot];
+          const float ov = tv[r][slot];
+          const int oi = ti[r][slot];
+          tv[r][slot] = swap ? cv : ov;
+          ti[r][slot] = swap ? ci : oi;
+          cv = swap ? ov : cv;
+          ci = swap ? oi : ci;
+        }
+        thr[r] = tv[r][K - 1];
+      }
+    }
+    // sum-exp: rescale once per tile, then add this tile's terms (masked
+    // specials at -1e30 and columns past the chunk at -inf add 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], tmax[r]);
+      if (mn > m[r]) {
+        s[r] *= expf(m[r] - mn);
+        m[r] = mn;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTkCols / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      if (m[r] > -INFINITY) s[r] += expf(acc[i] - m[r]);
+    }
+  }
+
+  // Each warpgroup's quad merges its 4 lists of a row into the row's top-K
+  // over its 64-column halves; the two warpgroups' lists and (m, s) then
+  // meet in shared memory (the ring is idle now) and one thread per row
+  // merges them.
+  float* sv = reinterpret_cast<float*>(ring);  // [kTkWgs][64][K]
+  int* si = reinterpret_cast<int*>(sv + kTkWgs * hop::kTileM * K);
+  float* sm = reinterpret_cast<float*>(si + kTkWgs * hop::kTileM * K);  // [kTkWgs][64]
+  float* ss = sm + kTkWgs * hop::kTileM;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wg * hop::kTileM + hop::acc_row(2 * r);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float bv = tv[r][0];
+      int bi = ti[r][0];
+      int bl = lane;
+      quad_best(bv, bi, bl);
+      if (lane == bl) {  // pop the winner's head
+#pragma unroll
+        for (int slot = 0; slot + 1 < K; ++slot) {
+          tv[r][slot] = tv[r][slot + 1];
+          ti[r][slot] = ti[r][slot + 1];
+        }
+        tv[r][K - 1] = -INFINITY;
+        ti[r][K - 1] = 0x7fffffff;
+      }
+      if ((lane & 3) == 0) {
+        sv[row * K + j] = bv;
+        si[row * K + j] = bi;
+      }
+    }
+    const float mm = quad_max(m[r]);
+    float part = s[r] > 0.0f ? s[r] * expf(m[r] - mm) : 0.0f;
+    part += __shfl_xor_sync(kFull, part, 1);
+    part += __shfl_xor_sync(kFull, part, 2);
+    if ((lane & 3) == 0) {
+      sm[row] = mm;
+      ss[row] = part;
+    }
+  }
+  __syncthreads();
+  const int row_l = threadIdx.x, row = m0 + row_l;
+  if (row_l < hop::kTileM && row < rows) {
+    const float* av = sv + row_l * K;
+    const int* ai = si + row_l * K;
+    const float* bv = sv + (hop::kTileM + row_l) * K;
+    const int* bi = si + (hop::kTileM + row_l) * K;
+    const size_t slot_base = ((size_t)row * nchunks + chunk) * K;
+    int ia = 0, ib = 0;
+    for (int j = 0; j < K; ++j) {
+      const bool take_a = ranks_before(av[ia], ai[ia], 0, bv[ib], bi[ib], 1);
+      cand_v[slot_base + j] = take_a ? av[ia] : bv[ib];
+      cand_i[slot_base + j] = take_a ? ai[ia] : bi[ib];
+      ia += take_a;
+      ib += !take_a;
+    }
+    const float ma = sm[row_l], mb = sm[hop::kTileM + row_l], mm = fmaxf(ma, mb);
+    const float sa_ = ss[row_l], sb = ss[hop::kTileM + row_l];
+    part_m[(size_t)row * nchunks + chunk] = mm;
+    part_s[(size_t)row * nchunks + chunk] =
+        (sa_ > 0.0f ? sa_ * expf(ma - mm) : 0.0f) + (sb > 0.0f ? sb * expf(mb - mm) : 0.0f);
+  }
+}
+
 // one warp per row: merge nchunks * k candidates and the (m, s) partials
 __global__ void __launch_bounds__(kThreads)
     topk_merge_kernel(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
@@ -204,20 +429,47 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) lse[row] = mx + logf(z);
 }
 
-template <typename T>
-cudaError_t launch_topk_tail(const void* h, const void* w, const float* b, float* cand_v,
-                             int* cand_i, float* part_m, float* part_s, float* vals, int* idx,
-                             float* lse, int rows, int hd, int v, int k, int block_unk,
-                             int chunk_cols, cudaStream_t st) {
-  const size_t smem = topk_chunk_smem_bytes();
-  const int nchunks = (v + chunk_cols - 1) / chunk_cols;
+cudaError_t launch_topk_tail_f32(const float* h, const float* w, const float* b, float* cand_v,
+                                 int* cand_i, float* part_m, float* part_s, int rows, int hd,
+                                 int v, int k, int block_unk, int chunk_cols, int nchunks,
+                                 cudaStream_t st) {
   dim3 grid(nchunks, (rows + kTkRows - 1) / kTkRows);
-  topk_chunk_kernel<T><<<grid, kThreads, smem, st>>>((const T*)h, (const T*)w, b, cand_v, cand_i,
-                                                     part_m, part_s, rows, hd, v, k, block_unk,
-                                                     chunk_cols);
-  cudaError_t err = cudaGetLastError();
+  topk_chunk_kernel<float><<<grid, kThreads, topk_chunk_smem_bytes(), st>>>(
+      h, w, b, cand_v, cand_i, part_m, part_s, rows, hd, v, k, block_unk, chunk_cols);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_topk_tail_bf16(const void* h, const void* w_t, const float* b, float* cand_v,
+                                  int* cand_i, float* part_m, float* part_s, int rows, int hd,
+                                  int v, int k, int block_unk, int chunk_cols, int nchunks,
+                                  cudaStream_t st) {
+  CUtensorMap map_h, map_w;
+  cudaError_t err = hop::make_tmap(&map_h, h, rows, hd, hd, hop::kTileM);
+  if (err == cudaSuccess) err = hop::make_tmap(&map_w, w_t, v, hd, hd, hop::kTileN);
   if (err != cudaSuccess) return err;
-  return launch_topk_merge(cand_v, cand_i, part_m, part_s, vals, idx, lse, rows, nchunks, k, st);
+  const int smem = (int)topk_wgmma_smem_bytes(hd);
+  const dim3 grid(nchunks, (rows + hop::kTileM - 1) / hop::kTileM);
+  auto launch = [&](auto kc) -> cudaError_t {  // one instantiation per K
+    constexpr int K = decltype(kc)::value;
+    static int smem_set = 0;
+    const cudaError_t e = hop::allow_smem(topk_chunk_wgmma_kernel<K>, smem, smem_set);
+    if (e != cudaSuccess) return e;
+    topk_chunk_wgmma_kernel<K><<<grid, kTkThreads, smem, st>>>(
+        map_h, map_w, b, cand_v, cand_i, part_m, part_s, rows, hd, v, block_unk, chunk_cols);
+    return cudaGetLastError();
+  };
+  using std::integral_constant;
+  switch (k) {
+    case 1: return launch(integral_constant<int, 1>{});
+    case 2: return launch(integral_constant<int, 2>{});
+    case 3: return launch(integral_constant<int, 3>{});
+    case 4: return launch(integral_constant<int, 4>{});
+    case 5: return launch(integral_constant<int, 5>{});
+    case 6: return launch(integral_constant<int, 6>{});
+    case 7: return launch(integral_constant<int, 7>{});
+    case 8: return launch(integral_constant<int, 8>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_topk_merge(const float* cand_v, const int* cand_i, const float* part_m,
@@ -231,23 +483,34 @@ cudaError_t launch_topk_merge(const float* cand_v, const int* cand_i, const floa
 
 }  // namespace cxg
 
-// dtype: 0 = float32 operands, 1 = bfloat16 (h and w). b, cand_v, part_m,
-// part_s, vals, lse f32; cand_i, idx int32. The scratch arrays hold
-// rows x ceil(v / chunk_cols) (x k) entries; chunk_cols is a multiple of
-// 128. k <= 8. Returns a cudaError_t (0 = launched).
+// dtype 0: h [rows, hd] and w = w_out [hd, v], float32; dtype 1: h
+// [rows, hd] and w = w_out^T [v, hd], bfloat16, hd % 8 == 0. b, cand_v,
+// part_m, part_s, vals, lse f32; cand_i, idx int32. The scratch arrays
+// hold rows x ceil(v / chunk_cols) (x k) entries; chunk_cols is a
+// multiple of 128. k <= 8. Returns a cudaError_t (0 = launched).
 extern "C" int cxg_topk_tail_fwd(int dtype, const void* h, const void* w, const void* b,
                                  void* cand_v, void* cand_i, void* part_m, void* part_s,
                                  void* vals, void* idx, void* lse, int rows, int hd, int v,
                                  int k, int block_unk, int chunk_cols, void* stream) {
-  if (k < 1 || k > cxg::kKMax || chunk_cols % cxg::kBN) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto tag) -> cudaError_t {
-    using T = decltype(tag);
-    return cxg::launch_topk_tail<T>(h, w, (const float*)b, (float*)cand_v, (int*)cand_i,
-                                    (float*)part_m, (float*)part_s, (float*)vals, (int*)idx,
-                                    (float*)lse, rows, hd, v, k, block_unk, chunk_cols,
-                                    (cudaStream_t)stream);
-  };
-  if (dtype == 0) return (int)run(float{});
-  if (dtype == 1) return (int)run(__nv_bfloat16{});
-  return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > cxg::kKMax || chunk_cols % cxg::kBN || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int nchunks = (v + chunk_cols - 1) / chunk_cols;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      dtype == 0
+          ? cxg::launch_topk_tail_f32((const float*)h, (const float*)w, (const float*)b,
+                                      (float*)cand_v, (int*)cand_i, (float*)part_m,
+                                      (float*)part_s, rows, hd, v, k, block_unk, chunk_cols,
+                                      nchunks, st)
+          : cxg::launch_topk_tail_bf16(h, w, (const float*)b, (float*)cand_v, (int*)cand_i,
+                                       (float*)part_m, (float*)part_s, rows, hd, v, k, block_unk,
+                                       chunk_cols, nchunks, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cxg::launch_topk_merge((const float*)cand_v, (const int*)cand_i,
+                                     (const float*)part_m, (const float*)part_s, (float*)vals,
+                                     (int*)idx, (float*)lse, rows, nchunks, k, st);
+}
+
+extern "C" long cxg_topk_wgmma_smem_bytes(int hd) {
+  return (long)cxg::topk_wgmma_smem_bytes(hd);
 }

@@ -40,8 +40,7 @@ from controllable_xgating_torch.models.decoder import (
     init_decoder_state,
 )
 from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_weights
-from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk, topk
-from controllable_xgating_torch.ops.precision import compute_dtype
+from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk, topk, topk_tail_weights
 
 NEG_INF = -1e30
 _BLOCK = 128  # prescreen window of row_topk_block
@@ -132,7 +131,7 @@ def beam_search(
     rows = torch.arange(b, device=dev)
     # the kernels' weight operands, cast once for every step
     kw = attn_lstm_weights(params) if fused else None
-    w_out = params.w_out.to(compute_dtype()) if lanes else None
+    w_op = topk_tail_weights(params.w_out) if lanes else None
 
     def final_score(cum, lengths):
         if length_penalty > 0.0:
@@ -148,7 +147,7 @@ def beam_search(
                 params, ctx_k, tok.reshape(b * k), h, c, fused=fused, return_hidden=True,
                 kernel_weights=kw,
             )
-            top_v, top_i, lse = logits_topk(h_out, w_out, params.b_out, k, block_unk)
+            top_v, top_i, lse = logits_topk(h_out, params.w_out, params.b_out, k, block_unk, w_op)
             logp_k = top_v - lse[:, None]
             s1_scores = cum.reshape(b * k)[:, None] + torch.where(fin_col, cont_v, logp_k)
             s1_idx = torch.where(fin_col, cont_i, top_i)

@@ -102,7 +102,8 @@ def build() -> str:
 _SIGNATURES = {
     "cxg_xgate_fwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
     "cxg_pos_lstm_fwd": [_I] + [_P] * 9 + [_I] * 3 + [_P],
-    "cxg_attn_lstm_fwd": [_I] + [_P] * 21 + [_I] * 6 + [_P],
+    "cxg_attn_lstm_fwd": [_P] * 21 + [_I] * 6 + [_P],
+    "cxg_attn_lstm_bf16_fwd": [_P] * 17 + [_I] * 6 + [_P],
     "cxg_topk_tail_fwd": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "cxg_xent_fwd": [_P] * 5 + [_I] * 2 + [_P],
     "cxg_xent_bwd": [_P] * 7 + [_I] * 2 + [_P],
@@ -110,6 +111,8 @@ _SIGNATURES = {
     "cxg_topk_extract_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_P],
     "cxg_xgate_smem_bytes": [_I],
     "cxg_attn_smem_bytes": [_I] * 3,
+    "cxg_attn_bf16_smem_bytes": [_I] * 3,
+    "cxg_topk_wgmma_smem_bytes": [_I],
     "cxg_topk_extract_smem_bytes": [_I],
 }
 
@@ -136,6 +139,8 @@ def dtype_code(t: torch.Tensor) -> int:
 def check(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype, device) -> int:
     """Raise unless t is a contiguous CUDA tensor of this shape, dtype and
     device; return its data pointer."""
+    if t.device == device and t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return t.data_ptr()  # the common case, in one test (the wrappers' host time)
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != dtype:

@@ -30,7 +30,7 @@ from controllable_xgating_torch.infer.beam import beam_search
 from controllable_xgating_torch.infer.greedy import greedy_decode
 from controllable_xgating_torch.models.captioner import encode_for_inference, init_captioner
 from controllable_xgating_torch.ops.dispatch import fused_enabled
-from controllable_xgating_torch.ops.precision import set_compute_dtype
+from controllable_xgating_torch.ops.precision import precision
 from controllable_xgating_torch.utils.config import Config
 
 BEAM = 5
@@ -109,22 +109,23 @@ def main(argv=None) -> None:
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("quant_ab: no CUDA device (pass --device cpu to run on the CPU)")
 
-    set_compute_dtype("bfloat16")
-    over = {"model.hidden_dim": args.hidden} if args.hidden else None
-    cfg, params = build(over, device=args.device)
-    vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
-    where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
-    print(f"# {'beam-5' if args.beam else 'greedy'}, hidden {cfg.model.hidden_dim}, on {where}")
-    print(f"{'batch':>6} {'bf16':>12} {'int8':>12} {'delta':>8}")
-    for b in args.batches:
-        app, mot = (torch.as_tensor(x, device=args.device) for x in random_batch(cfg, b))
-        out = {
-            quant: captions_per_s(make_fn(cfg, args.beam, vq if quant else None), params, app,
-                                  mot, args.reps)
-            for quant in (False, True)
-        }
-        print(f"{b:>6} {out[False]:>10.0f}/s {out[True]:>10.0f}/s "
-              f"{out[True] / out[False] - 1:>+7.1%}", flush=True)
+    # the bf16 policy is scoped to this call: the policy is process-global
+    with precision("bfloat16"):
+        over = {"model.hidden_dim": args.hidden} if args.hidden else None
+        cfg, params = build(over, device=args.device)
+        vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
+        where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+        print(f"# {'beam-5' if args.beam else 'greedy'}, hidden {cfg.model.hidden_dim}, on {where}")
+        print(f"{'batch':>6} {'bf16':>12} {'int8':>12} {'delta':>8}")
+        for b in args.batches:
+            app, mot = (torch.as_tensor(x, device=args.device) for x in random_batch(cfg, b))
+            out = {
+                quant: captions_per_s(make_fn(cfg, args.beam, vq if quant else None), params, app,
+                                      mot, args.reps)
+                for quant in (False, True)
+            }
+            print(f"{b:>6} {out[False]:>10.0f}/s {out[True]:>10.0f}/s "
+                  f"{out[True] / out[False] - 1:>+7.1%}", flush=True)
 
 
 if __name__ == "__main__":

@@ -126,31 +126,32 @@ def main(argv=None) -> None:
         sys.exit("profiling: needs a CUDA device")
 
     from controllable_xgating_torch.ops.dispatch import set_fused_kernels
-    from controllable_xgating_torch.ops.precision import set_compute_dtype
+    from controllable_xgating_torch.ops.precision import precision
     from controllable_xgating_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(ROOT, "configs", "msrvtt.json"),
                       {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB})
     dev = torch.device("cuda:0")
-    set_compute_dtype("bfloat16")
     os.makedirs(args.out, exist_ok=True)
-    try:
-        for fused in (None, False):
-            set_fused_kernels(fused)
-            for name, fn, fn_args in caption_calls(cfg, dev) + train_calls(cfg, dev):
-                wall, ka, prof = profile_call(fn, fn_args)
-                device_ms = device_time_ms(ka)
-                copies = [e for e in ka if e.key == "aten::copy_"]
-                tag = f"{name}_{'kernels' if fused is None else 'plain'}"
-                print(f"== {tag}: wall {wall:.2f} ms, device time {device_ms:.2f} ms, "
-                      f"device busy share ~{device_ms / wall:.3f}, "
-                      f"aten::copy_ {sum(e.count for e in copies)} calls "
-                      f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms")
-                print(ka.table(sort_by="self_device_time_total", row_limit=14,
-                               max_name_column_width=60))
-                prof.export_chrome_trace(os.path.join(args.out, f"trace_{tag}.json"))
-    finally:
-        set_fused_kernels(None)
+    # the bf16 policy and the kernel setting are scoped to this call
+    with precision("bfloat16"):
+        try:
+            for fused in (None, False):
+                set_fused_kernels(fused)
+                for name, fn, fn_args in caption_calls(cfg, dev) + train_calls(cfg, dev):
+                    wall, ka, prof = profile_call(fn, fn_args)
+                    device_ms = device_time_ms(ka)
+                    copies = [e for e in ka if e.key == "aten::copy_"]
+                    tag = f"{name}_{'kernels' if fused is None else 'plain'}"
+                    print(f"== {tag}: wall {wall:.2f} ms, device time {device_ms:.2f} ms, "
+                          f"device busy share ~{device_ms / wall:.3f}, "
+                          f"aten::copy_ {sum(e.count for e in copies)} calls "
+                          f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms")
+                    print(ka.table(sort_by="self_device_time_total", row_limit=14,
+                                   max_name_column_width=60))
+                    prof.export_chrome_trace(os.path.join(args.out, f"trace_{tag}.json"))
+        finally:
+            set_fused_kernels(None)
 
 
 if __name__ == "__main__":

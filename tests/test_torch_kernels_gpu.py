@@ -123,6 +123,117 @@ def test_topk_tail_kernel(dev, policy, tol, r, hd, v, k, block_unk):
     assert kernels.launch_counts()["topk_tail"] == 1
 
 
+# the bounds chip_smoke.py holds K3 and K4 to at the path's shapes
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+K3_TOL = {"float32": F32_TOL, "bfloat16": dict(rtol=0.0, atol=1e-4)}
+K4_TOL = {"float32": F32_TOL, "bfloat16": dict(rtol=0.0, atol=1e-5)}
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 26])
+@pytest.mark.parametrize("r", [1, 37, 256, 1280])
+def test_attn_lstm_kernel_redesign(dev, policy, r, t):
+    """K3 at MSR-VTT widths, rows ragged against the 64-row tiles, one or
+    26 frames, with rows whose mask leaves only frame 0 live."""
+    from controllable_xgating_torch.models.decoder import (
+        init_decoder,
+        init_decoder_state,
+        make_decode_context,
+    )
+    from controllable_xgating_torch.ops.kernels.attn_lstm import (
+        attn_lstm_step_kernel,
+        attn_lstm_step_plain,
+        attn_lstm_weights,
+    )
+
+    g, gd = gen(dev)
+    dec = init_decoder(g, 300, 1024, 512, 512, 512, 512, guide_dim=512).to(dev)
+    rn = lambda *s: torch.randn(*s, generator=gd, device=dev)
+    live = torch.randint(1, t + 1, (r, 1), generator=gd, device=dev)
+    live[::3] = 1  # every third row: frame 0 only
+    mask = (torch.arange(t, device=dev)[None] < live).float()
+    with precision(policy):
+        ctx = make_decode_context(dec, torch.tanh(rn(r, t, 1024)), torch.tanh(rn(r, 512)), mask)
+        hd, cd = init_decoder_state(dec, torch.tanh(rn(r, 1024)))
+        args = (dec, dec.embed[torch.randint(4, 300, (r,), generator=gd, device=dev)], hd, cd,
+                ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask)
+        got = attn_lstm_step_kernel(*args, attn_lstm_weights(dec))
+        ref = attn_lstm_step_plain(*args)
+    for x, y in zip(got, ref):
+        close(x, y, K3_TOL[policy])
+    assert kernels.launch_counts()["attn_lstm"] == 1
+
+
+def planted_tail(dev, r, v, seed=2):
+    """(h, w, b, tied rows): logits N(0, 1)-ish, and on every other row
+    four equal winners at columns 127 | 128 (an N-tile edge) and
+    CHUNK_COLS - 1 | CHUNK_COLS (a vocab chunk edge), where they exist.
+    Their w columns are zero and their bias equal, so the logits tie
+    exactly in any summation order."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import CHUNK_COLS
+
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.tanh(torch.randn(r, 512, generator=gd, device=dev))
+    w = torch.randn(512, v, generator=gd, device=dev) * 512 ** -0.5
+    b = torch.randn(v, generator=gd, device=dev) * 0.1
+    cols = [c for c in (127, 128, CHUNK_COLS - 1, CHUNK_COLS) if c < v]
+    tied = torch.arange(r, device=dev) % 2 == 0
+    w[:, cols] = 0.0
+    b[cols] = 6.0
+    h[tied] *= 0.25  # the tie beats the rest on the tied rows
+    return h, w, b, tied
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_unk", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("r,v", [(1, 129), (65, 1000), (1280, 10000), (65, 10000), (1280, 129)])
+def test_topk_tail_kernel_redesign(dev, policy, r, v, k, block_unk):
+    """K4 against its plain version: values and lse within the bounds,
+    id sets equal on rows clear of ties, and on the rows with planted
+    ties across an N-tile and a chunk edge, the ids in the plain order."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import (
+        logits_topk,
+        logits_topk_plain,
+        topk_tail_weights,
+    )
+
+    h, w, b, tied = planted_tail(dev, r, v)
+    tol = K4_TOL[policy]
+    with precision(policy):
+        vals, idx, lse = logits_topk(h, w, b, k, block_unk, topk_tail_weights(w))
+        rv, ri, rl = logits_topk_plain(h, w, b, k + 1, block_unk)
+    close(vals, rv[:, :k], tol)
+    close(lse, rl, tol)
+    clear = rv[:, k - 1] - rv[:, k] > tol["atol"] + tol["rtol"] * rv[:, k - 1].abs()
+    same = (idx.sort(1).values == ri[:, :k].sort(1).values).all(1)
+    assert bool(same[clear].all())
+    assert torch.equal(idx[tied], ri[tied, :k])
+    assert kernels.launch_counts()["topk_tail"] == 1
+
+
+def test_redesigned_kernels_run_on_wgmma(dev):
+    """The SASS of the built library: HGMMA in K3's pre-activation GEMM
+    and in K4's chunk kernel (bf16), and no TF32 product anywhere (the f32
+    policy's kernels stay full f32)."""
+    import shutil
+    import subprocess
+
+    from controllable_xgating_torch.ops.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", build.build()], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    for kernel in ("pre_gemm_kernel", "topk_chunk_wgmma_kernel"):
+        bodies = [body for name, body in funcs.items() if kernel in name]
+        assert bodies and all("HGMMA" in body for body in bodies), kernel
+    assert "TF32" not in sass
+
+
 def test_topk_tail_kernel_breaks_ties_by_lower_index(dev):
     from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk
 
@@ -214,6 +325,8 @@ def test_wrappers_raise_on_shapes_they_do_not_take(dev):
     h = torch.randn(4, 8, device=dev)
     with pytest.raises(ValueError, match="k <="):
         logits_topk(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
+    with precision("bfloat16"), pytest.raises(ValueError, match="Hd % 8"):  # 16-byte TMA rows
+        logits_topk(h[:, :6], torch.randn(6, 100, device=dev), torch.zeros(100, device=dev), 5)
     with pytest.raises(ValueError, match="k <="):
         logits_topk_extract_kernel(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
     q = quantize_vocab_proj(torch.randn(8, 100, device=dev), torch.zeros(100, device=dev))

@@ -340,6 +340,115 @@ def test_kernel_weights_are_cast_once_to_the_policy(policy):
     assert torch.equal(pw.whh, pos.lstm.whh.to(cdt)) and pw.whh.dtype == cdt
 
 
+def _decoder(hd, e, a, g, seed=0):
+    from controllable_xgating_torch.models.decoder import init_decoder
+
+    return init_decoder(torch.Generator().manual_seed(seed), 50, 2 * hd, hd, e, a, 24, guide_dim=g)
+
+
+@pytest.mark.parametrize("hd", [16, 18])
+def test_gate_perm_puts_a_units_gates_in_one_threads_columns(hd):
+    """Thread q of a quad holds, in each 8-column group of a wgmma m64nN
+    accumulator, columns 2q and 2q + 1 (hopper_gemm.cuh, acc_col). In
+    gate_perm's order those columns of 16-column block j hold exactly the
+    i, f, g, o gates of unit 4j + q; every gate column appears once."""
+    from controllable_xgating_torch.ops.kernels.attn_lstm import gate_perm
+
+    perm = gate_perm(hd)
+    assert len(perm) == 4 * (-(-hd // 4) * 4)
+    assert sorted(perm[perm >= 0].tolist()) == list(range(4 * hd))
+    for q in range(4):
+        cols = sorted({8 * (i >> 2) + 2 * q + (i & 1) for i in range(64)})  # a 128-column tile
+        for j in range(len(perm) // 16):
+            mine = [c for c in cols if c // 16 == j % 8]
+            p = [16 * j + c % 16 for c in mine]
+            assert p == [16 * j + 2 * q, 16 * j + 2 * q + 1, 16 * j + 8 + 2 * q, 16 * j + 9 + 2 * q]
+            u = 4 * j + q
+            want = [gate * hd + u for gate in range(4)] if u < hd else [-1] * 4
+            assert perm[p].tolist() == want
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,e,a,g", [(16, 12, 14, 16), (18, 20, 36, 44)])
+def test_packed_weights_hold_the_source_slices(policy, hd, e, a, g):
+    """The bf16 kernel's packed operands, block by block: rows of W_pre^T
+    are q's, then gate_pre's, then lstm_pre's gate columns (in gate_perm
+    order) over K = [h | e], zero-padded to a multiple of 8; W_cell^T and
+    the cell bias follow gate_perm too; padding units are zero."""
+    from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_weights, gate_perm
+
+    dec = _decoder(hd, e, a, g)
+    with t_prec.precision(policy):
+        cdt = t_prec.compute_dtype()
+        w = attn_lstm_weights(dec)
+    kx, perm = hd + e, gate_perm(hd)
+    live = perm >= 0
+    n_pre = a + g + len(perm)
+    assert w.w_pre.shape == (n_pre, -(-kx // 8) * 8) and w.w_pre.dtype == cdt
+    assert w.w_cell.shape == (len(perm), -(-g // 8) * 8) and w.w_cell.dtype == cdt
+    assert w.b_cell.dtype == torch.float32 and w.w_pre.is_contiguous() and w.w_cell.is_contiguous()
+    rnd = lambda t: t.to(cdt)
+    wp = w.w_pre
+    assert not wp[:, kx:].any() and not w.w_cell[:, g:].any()
+    assert torch.equal(wp[:a, :hd], rnd(dec.attn.wq.T)) and not wp[:a, hd:].any()
+    assert torch.equal(wp[a:a + g, :hd], rnd(dec.w_gate[:hd].T))
+    assert torch.equal(wp[a:a + g, hd:kx], rnd(dec.w_gate[hd:].T))
+    lstm = wp[a + g:]
+    assert torch.equal(lstm[live, :hd], rnd(dec.lstm.whh[:, perm[live]].T))
+    assert torch.equal(lstm[live, hd:kx], rnd(dec.lstm.wih[:e, perm[live]].T))
+    assert not lstm[~live].any() and not w.w_cell[~live].any() and not w.b_cell[~live].any()
+    assert torch.equal(w.w_cell[live, :g], rnd(dec.lstm.wih[e:, perm[live]].T))
+    assert torch.equal(w.b_cell[live], dec.lstm.b[perm[live]])
+
+
+@pytest.mark.parametrize("hd,e,a,g", [(16, 12, 14, 16), (18, 20, 36, 44)])
+def test_packed_weights_rebuild_the_plain_step(hd, e, a, g):
+    """In f32 on the CPU, [h | e] @ W_pre gives the q, gate_pre and lstm_pre
+    that attn_lstm_step_plain forms, and the bf16 kernel's data flow on the
+    packed operands (attention from that q and gate_pre, then guide @
+    W_cell + lstm_pre + b_cell read in gate_perm order) gives its h', c'."""
+    from controllable_xgating_torch.models.decoder import init_decoder_state, make_decode_context
+    from controllable_xgating_torch.ops.kernels.attn_lstm import (
+        attn_lstm_step_plain,
+        attn_lstm_weights,
+        gate_perm,
+    )
+
+    dec = _decoder(hd, e, a, g, seed=1)
+    r, t = 5, 7
+    rng = np.random.default_rng(30)
+    mask = T((np.arange(t)[None] < np.array([[7], [3], [1], [7], [5]])).astype(np.float32))
+    ctx = make_decode_context(dec, torch.tanh(T(rng.standard_normal((r, t, 2 * hd)))),
+                              torch.tanh(T(rng.standard_normal((r, 24)))), mask)
+    h, c = init_decoder_state(dec, torch.tanh(T(rng.standard_normal((r, 2 * hd)))))
+    emb = T(rng.standard_normal((r, e))) * 0.5
+    with t_prec.precision("float32"):
+        w = attn_lstm_weights(dec)
+        ref_h, ref_c, ref_alpha = attn_lstm_step_plain(dec, emb, h, c, ctx.keys, ctx.enc_proj,
+                                                       ctx.psi_g, mask)
+    perm = gate_perm(hd)
+    pre = torch.cat([h, emb], 1) @ w.w_pre[:, :hd + e].T
+    q, gate_pre, lstm_pre = pre[:, :a], pre[:, a:a + g], pre[:, a + g:]
+    close(q, (h @ dec.attn.wq).numpy())
+    close(gate_pre, (h @ dec.w_gate[:hd] + emb @ dec.w_gate[hd:]).numpy())
+    full = emb @ dec.lstm.wih[:e] + h @ dec.lstm.whh
+    live = perm >= 0
+    close(lstm_pre[:, live], full[:, perm[live]].numpy())
+    # the kernel's data flow on the packed operands
+    score = (torch.tanh(q[:, None] + w.battn + ctx.keys) * w.v).sum(-1)
+    alpha = torch.softmax(torch.where(mask > 0, score, torch.full_like(score, -1e9)), -1)
+    gate = torch.sigmoid(gate_pre + w.bg)
+    guide = gate * (alpha[..., None] * ctx.enc_proj).sum(1) + (1 - gate) * ctx.psi_g
+    gates_p = guide @ w.w_cell[:, :g].T + lstm_pre + w.b_cell
+    gates = torch.empty(r, 4 * hd)
+    gates[:, perm[live]] = gates_p[:, live]
+    i, f, gg, o = gates.split(hd, 1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+    close(alpha, ref_alpha.numpy())
+    close(c_new, ref_c.numpy())
+    close(torch.sigmoid(o) * torch.tanh(c_new), ref_h.numpy())
+
+
 def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
     import ast
 

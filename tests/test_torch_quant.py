@@ -27,7 +27,7 @@ from controllable_xgating_torch.models import captioner as t_cap
 from controllable_xgating_torch.models import decoder as t_dec
 from controllable_xgating_torch.ops import kernels
 from controllable_xgating_torch.ops.dispatch import set_fused_kernels
-from controllable_xgating_torch.ops.precision import precision
+from controllable_xgating_torch.ops.precision import compute_dtype, precision
 from experiments import int8_vocab_matmul as j_q
 from tools.import_torch_checkpoint import param_paths
 
@@ -112,7 +112,7 @@ def make_cfg(vocab=40):
     })
 
 
-def numpy_params(cfg, seed):
+def numpy_params(cfg, seed, eos_bias=1.0):
     """(JAX CaptionerParams, port CaptionerParams) holding the same numpy
     draws, scaled so that captions vary and some end early."""
     shapes = jax.eval_shape(lambda: j_cap.init_captioner(jax.random.PRNGKey(0), cfg.model))
@@ -125,7 +125,7 @@ def numpy_params(cfg, seed):
         else:
             std = 1.0 if name.endswith("embed") else 0.05
             tree[name] = (rng.standard_normal(leaf.shape) * std).astype(np.float32)
-    tree["decoder.b_out"][EOS] += 1.0
+    tree["decoder.b_out"][EOS] += eos_bias
     names = [n for n, _ in param_paths(shapes)]
     jp = jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(shapes), [jnp.asarray(tree[n]) for n in names])
@@ -221,6 +221,40 @@ def test_quant_ab_tool_runs_on_cpu(capsys, beam):
     assert lines[0].startswith("# beam-5" if beam else "# greedy") and "on cpu" in lines[0]
     batch, bf16, int8, delta = lines[-1].split()
     assert batch == "2" and bf16.endswith("/s") and int8.endswith("/s") and delta.endswith("%")
+
+
+QUANT_AB_CPU = ["--device", "cpu", "--hidden", "16", "--batches", "2"]
+
+
+def test_quant_ab_tool_restores_the_compute_policy(capsys):
+    """The tool runs under bf16 but the policy is process-global: after it
+    returns, the caller's f32 policy holds again."""
+    from controllable_xgating_torch.tools import quant_ab
+
+    with precision("float32"):
+        quant_ab.main(QUANT_AB_CPU)
+        assert compute_dtype() is torch.float32
+    capsys.readouterr()
+
+
+def test_slice_matches_jax_after_the_quant_ab_tool(capsys):
+    """The captioning slice's beam-5 check (tests/test_torch_slice.py's
+    weights and inputs) run after the tool in one process, as a test
+    worker runs one file after another: the tokens equal the JAX package's."""
+    from controllable_xgating_torch.tools import quant_ab
+
+    cfg = make_cfg(40)
+    jp, tp = numpy_params(cfg, 11, eos_bias=0.0)
+    rng = np.random.default_rng(12)
+    app = rng.standard_normal((3, 5, 12)).astype(np.float32)
+    mot = rng.standard_normal((3, 5, 10)).astype(np.float32)
+    mask = np.array([[1, 1, 1, 1, 1], [1, 1, 1, 0, 0], [1, 1, 0, 0, 0]], np.float32)
+    with precision("float32"):
+        quant_ab.main(QUANT_AB_CPU + ["--beam"])
+        jt = j_beam.make_beam_caption_fn(5, MAX_POS, MAX_LEN)(jp, app, mot, mask)[0]
+        tt = t_beam.make_beam_caption_fn(5, MAX_POS, MAX_LEN)(tp, T(app), T(mot), T(mask))[0]
+    capsys.readouterr()
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
 def test_quant_ab_tool_refuses_cuda_without_a_card(monkeypatch):
