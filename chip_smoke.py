@@ -17,7 +17,15 @@ Phases, each fatal on failure:
      held against the beam tail's kernel (K4) on the same inputs; under
      bf16, K3 and K4 again at greedy's 256 rows (timed beside beam's
      1280), and cuBLAS's bare bf16 projection h @ w_out at the beam shape
-     as a yardstick for K4's wgmma mainloop;
+     as a yardstick for K4's wgmma mainloop; the POS LSTM step (K2) as
+     the rollout takes it (`PosLstmRollout`), and again at a ragged shape
+     (77 rows, Ep 100, H 72) under both policies for three steps; the
+     device microseconds per launch of every kernel at its path's shape
+     (`torch.profiler`, the port's own kernels only);
+  3b. the beam tails' `topk` on the quantized beam's candidate matrix
+     [1280, 10000] with planted ties, +-0.0, -1e30 and -inf: indices and
+     values equal to `torch.sort(..., stable=True)` at k = 1, 5, 8; both
+     timed;
   4. caption 256 seeded videos with random seeded weights under the bf16
      policy through `evaluate_split` with `make_beam_caption_fn` (beam 5),
      then with `make_greedy_caption_fn`; every kernel of each path must
@@ -26,16 +34,17 @@ Phases, each fatal on failure:
      (`set_fused_kernels(False)`) must give the same caption for >= 98% of
      the videos, beam and greedy;
   6. the quantized decode path (`vocab_q`): the int8 vocab projection
-     kernel (K7) against its plain version at the greedy [256, 512] and
-     beam [1280, 512] shapes -> 10000 (rtol 1e-4, atol 1e-5), timed beside
+     kernel (K7), on its K-major operand made once, against its plain
+     version at the greedy [256, 512] and beam [1280, 512] shapes -> 10000
+     and at a ragged [77, 96] -> 1301 (rtol 1e-4, atol 1e-5), timed beside
      the bf16 projection it stands in for; greedy and beam-5 (grouped
      tail) with `vocab_q` over the 256 videos through `evaluate_split` and
      the entry point of `tools/quant_ab.py`, bf16 policy, where K7 must
      launch once per step (28) and xgate, pos_lstm and attn_lstm as on the
      unquantized paths, topk_tail never; under the f32 policy the int8
      kernel and plain paths must agree on >= 98% of the captions; printed
-     only, the agreement with the bf16 projection and the captions/s of
-     both in turns;
+     only, the agreement with the bf16 projection, the captions/s of
+     both in turns and the device time of one call of each;
   7. one beam-5 call per full log-softmax tail (grouped, flat, block), plain
      path, unquantized: the tokens must be equal;
   8. training at MSR-VTT width (batch 64 x 5 captions, vocab 10000, 35 POS
@@ -51,7 +60,8 @@ Phases, each fatal on failure:
      Adam first moments within a relative norm of 1e-5, parameters within
      atol 1e-5); ten steps on one batch at dropout 0,
      whose loss must fall;
-then print one JSON line of kernel results (eight kernels, each with its
+then print every kernel's device microseconds per launch beside its
+bound, one JSON line of kernel results (eight kernels, each with its
 launches on its path, bound and times) and, last, one JSON line
 `{"ok": true, "device": {...}}`.
 """
@@ -99,6 +109,16 @@ PATH_KERNELS = {
     "beam-5-int8": ("xgate", "pos_lstm", "attn_lstm", "int8_vocab"),
     "xe-train": ("xent_fwd", "xent_bwd"),
 }
+
+
+# kernel -> device microseconds per launch at its path's shape (torch.profiler)
+DEVICE_US: dict = {}
+
+
+def kernel_device_us(fn) -> float:
+    from controllable_xgating_torch.utils.profiling import kernel_device_us as measure
+
+    return measure(fn)
 
 
 def fail(msg: str) -> None:
@@ -188,7 +208,8 @@ def kernel_cases(params, dev, r: int = B * K):
     enc, pos, dec = params.encoder, params.pos, params.decoder
     he, hp, hd = enc.out_dim, pos.lstm.hidden_dim, dec.hidden_dim
     xa, xm = rn(B * T, enc.xgate.wa.shape[0]), rn(B * T, enc.xgate.wm.shape[0])
-    e_pos = pos.embed[ri(4, POS_VOCAB, (B,))]
+    tok_pos = ri(4, POS_VOCAB, (B,))
+    e_pos = pos.embed[tok_pos]
     sg = _summary_gates(pos, torch.tanh(rn(B, he)))
     h_pos, c_pos = torch.tanh(rn(B, hp)), rn(B, hp)
     mask = (torch.arange(T, device=dev)[None] < ri(T // 2, T + 1, (r, 1))).float()
@@ -198,12 +219,15 @@ def kernel_cases(params, dev, r: int = B * K):
     h_out = torch.tanh(rn(r, hd))
     step = (dec, e_dec, h_dec, c_dec, ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask)
     pos_w, step_w = pos_lstm.pos_lstm_weights(pos), attn_lstm.attn_lstm_weights(dec)
+    # the rollout's step, as pos_greedy_generate takes it: the first call
+    # starts from h_pos (the one held against the plain version)
+    pos_cell = pos_lstm.PosLstmRollout(pos, h_pos, sg, pos_w)
     w_out = dec.w_out.to(compute_dtype())
     w_op = topk_tail.topk_tail_weights(dec.w_out)
     return [
         ("xgate", lambda: xgate.xgate_fuse_kernel(enc.xgate, xa, xm),
          lambda: xgate.xgate_fuse_plain(enc.xgate, xa, xm)),
-        ("pos_lstm", lambda: pos_lstm.pos_lstm_step_kernel(pos, e_pos, sg, h_pos, c_pos, pos_w),
+        ("pos_lstm", lambda: pos_cell.step(c_pos, tok=tok_pos),
          lambda: pos_lstm.pos_lstm_step_plain(pos, e_pos, sg, h_pos, c_pos)),
         ("attn_lstm", lambda: attn_lstm.attn_lstm_step_kernel(*step, step_w),
          lambda: attn_lstm.attn_lstm_step_plain(*step)),
@@ -250,7 +274,12 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
             if not torch.allclose(a.float(), b.float(), **tol):
                 fail(f"{name} [{policy}]: max |kernel - plain| = {err:.3e} outside {tol}")
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        dev_us = ""
+        if policy == "bfloat16":
+            DEVICE_US[name] = kernel_device_us(kern)
+            dev_us = f"  device {DEVICE_US[name]:.2f} us per launch"
+        print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms{dev_us}")
         out[name] = (err, ms, plain_ms)
         if name == "topk_tail" and policy == "bfloat16":
             # how close K4's mainloop gets to cuBLAS on the bare projection
@@ -303,7 +332,8 @@ def check_greedy_rows(params, dev, beam: dict) -> None:
                    for a, b in zip(got, ref)):
             fail(f"{name} [bfloat16, {B} rows]: max |kernel - plain| = {err:.3e} outside {tol}")
         print(f"kernel {name} [bfloat16, {B} rows (greedy)]: max_abs_err {err:.3e}  kernel "
-              f"{cuda_ms(kern):.4f} ms  plain {cuda_ms(plain):.4f} ms; at {B * K} rows (beam-5) "
+              f"{cuda_ms(kern):.4f} ms  plain {cuda_ms(plain):.4f} ms  device "
+              f"{kernel_device_us(kern):.2f} us per launch; at {B * K} rows (beam-5) "
               f"kernel {beam[name][1]:.4f} ms")
 
 
@@ -319,36 +349,129 @@ def ids_agree(idx, rv, ri, tol, other=None):
 def check_int8(params, dev) -> dict:
     """K7 against its plain version at the greedy [256, 512] and beam
     [1280, 512] shapes -> 10000, on the projection quantized from the
-    decoder's: both multiply the same bf16 operands, so F32_TOL. Times
-    both and the bf16 projection `mm(h, w_out) + b` (bf16 policy) that it
-    stands in for. Returns {rows: (max_abs_err, ms, plain_ms, bf16_ms)}."""
+    decoder's and its K-major operand made once (`with_kernel_operand`,
+    as the decode loops do), and at a ragged shape (77 rows, K 96, n 1301:
+    no multiple of the 128-row tile, the 64-deep K step, the 128-column
+    tile or 4, so the output rows lie off 16-byte alignment): both multiply the same bf16 operands, so F32_TOL. Times both,
+    the kernel's device time per launch and the bf16 projection
+    `mm(h, w_out) + b` (bf16 policy) that it stands in for. Returns {rows:
+    (max_abs_err, ms, plain_ms, bf16_ms)}."""
     import torch
 
-    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import (
+        quantize_vocab_proj,
+        with_kernel_operand,
+    )
     from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_plain, int8_vocab_proj
     from controllable_xgating_torch.ops.precision import mm
 
     dec = params.decoder
-    q = quantize_vocab_proj(dec.w_out, dec.b_out)
     g = torch.Generator(device=dev).manual_seed(13)
+    ragged = quantize_vocab_proj(torch.randn(96, 1301, generator=g, device=dev) * 0.1,
+                                 torch.randn(1301, generator=g, device=dev) * 0.1)
+    q = with_kernel_operand(quantize_vocab_proj(dec.w_out, dec.b_out))
     out = {}
-    for rows in (B, B * K):
-        h = torch.tanh(torch.randn(rows, dec.hidden_dim, generator=g, device=dev))
-        kern = lambda: int8_vocab_proj(h, q.wq, q.scale, q.bias, q.n)
-        plain = lambda: int8_vocab_plain(h, q.wq, q.scale, q.bias)[:, : q.n]
+    for rows, qq in ((B, q), (B * K, q), (77, with_kernel_operand(ragged))):
+        k_dim = qq.wq.shape[0]
+        h = torch.tanh(torch.randn(rows, k_dim, generator=g, device=dev))
+        kern = lambda: int8_vocab_proj(h, qq.wq, qq.scale, qq.bias, qq.n, qq.wq_t)
+        plain = lambda: int8_vocab_plain(h, qq.wq, qq.scale, qq.bias)[:, : qq.n]
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        if got.shape != (rows, VOCAB) or not torch.isfinite(got).all() or not torch.allclose(
+        if got.shape != (rows, qq.n) or not torch.isfinite(got).all() or not torch.allclose(
                 got, ref, **F32_TOL):
-            fail(f"int8_vocab [{rows}x{dec.hidden_dim}]: max |kernel - plain| = {err:.3e} "
+            fail(f"int8_vocab [{rows}x{k_dim} -> {qq.n}]: max |kernel - plain| = {err:.3e} "
                  f"outside {F32_TOL}")
+        if rows == 77:
+            print(f"kernel int8_vocab [{rows}x{k_dim} -> {qq.n}, ragged]: max_abs_err {err:.3e}")
+            continue
         out[rows] = (err, cuda_ms(kern), cuda_ms(plain),
                      cuda_ms(lambda: mm(h, dec.w_out) + dec.b_out.float()))
-        print(f"kernel int8_vocab [{rows}x{dec.hidden_dim} -> {VOCAB}]: max_abs_err {err:.3e}  "
-              f"kernel {out[rows][1]:.4f} ms  plain {out[rows][2]:.4f} ms  "
-              f"bf16 projection {out[rows][3]:.4f} ms  bound {int8_bound(rows, dec.hidden_dim, VOCAB)}")
+        dev_us = kernel_device_us(kern)
+        if rows == B * K:
+            DEVICE_US["int8_vocab"] = dev_us
+        print(f"kernel int8_vocab [{rows}x{k_dim} -> {VOCAB}]: max_abs_err {err:.3e}  "
+              f"kernel {out[rows][1]:.4f} ms  plain {out[rows][2]:.4f} ms  device {dev_us:.2f} us "
+              f"per launch  bf16 projection {out[rows][3]:.4f} ms  "
+              f"bound {int8_bound(rows, k_dim, VOCAB)}")
     return out
+
+
+def check_pos_ragged(dev) -> None:
+    """K2 through a rollout at a ragged shape (77 rows, Ep 100, H 72: no
+    multiple of the 64-row tile, of the 64-deep K step or of 8 for Ep),
+    under both policies: three steps on gathered tags, each against the
+    plain step from the same state (F32_TOL, or BF16_TOL["pos_lstm"])."""
+    import torch
+
+    from controllable_xgating_torch.models.pos_generator import _summary_gates, init_pos_generator
+    from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout, pos_lstm_step_plain
+    from controllable_xgating_torch.ops.precision import precision
+
+    rows, ep, hd = 77, 100, 72
+    pos = init_pos_generator(torch.Generator().manual_seed(4), POS_VOCAB, 2 * hd, hd, ep, 64).to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for policy, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL["pos_lstm"])):
+        with precision(policy):
+            h = torch.tanh(torch.randn(rows, hd, generator=g, device=dev))
+            c = torch.randn(rows, hd, generator=g, device=dev)
+            sg = _summary_gates(pos, torch.tanh(torch.randn(rows, 2 * hd, generator=g, device=dev)))
+            cell, err = PosLstmRollout(pos, h, sg), 0.0
+            for _ in range(3):
+                tok = torch.randint(0, POS_VOCAB, (rows,), generator=g, device=dev)
+                ref = pos_lstm_step_plain(pos, pos.embed[tok], sg, h, c)
+                h, c = cell.step(c, tok=tok)
+                torch.cuda.synchronize()
+                for a, b in zip((h, c), ref):
+                    err = max(err, (a - b).abs().max().item())
+                    if not torch.isfinite(a).all() or not torch.allclose(a, b, **tol):
+                        fail(f"pos_lstm [{policy}, {rows} rows, Ep {ep}, H {hd}]: max |kernel - "
+                             f"plain| = {err:.3e} outside {tol}")
+        print(f"kernel pos_lstm [{policy}, {rows} rows, Ep {ep}, H {hd}, ragged, 3 steps]: "
+              f"max_abs_err {err:.3e}")
+
+
+def check_topk(dev) -> dict:
+    """The beam tails' `topk` on the quantized beam's candidate matrix
+    [1280, 10000] (cum + log-softmax, finished rows' PAD-only rows, planted
+    ties, +-0.0, -1e30, -inf) against `torch.sort(..., stable=True)`:
+    indices and values equal, k = 1, 5, 8. Times both at k = 5. Returns
+    {name: ms}."""
+    import torch
+
+    from controllable_xgating_torch.ops.kernels.topk_tail import topk
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    r, v = B * K, VOCAB
+    cum = -torch.rand(r, 1, generator=g, device=dev) * 10
+    x = cum + torch.log_softmax(torch.randn(r, v, generator=g, device=dev) * 3, -1)
+    x[::4, 100:140] = x[::4, 5:6]                # ties with a row's own values
+    x[1::4, 17] = x[1::4, 9000] = x[1::4].amax(-1)  # a tie for the top
+    x[2::4] = torch.where(torch.arange(v, device=dev) == 0, 0.0, -1e30)  # finished rows
+    x[3::4, ::9] = -0.0
+    x[:, 1] = -float("inf")
+    stable = lambda k: tuple(t[:, :k] for t in torch.sort(x, dim=-1, descending=True, stable=True))
+    for k in (1, 5, 8):
+        rv, ri = stable(k)
+        vals, idx = topk(x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ri) and torch.equal(vals, rv)):
+            fail(f"topk [{r}x{v}, k {k}]: indices differ from the stable sort on "
+                 f"{int((idx != ri).any(1).sum())} rows")
+    from controllable_xgating_torch.utils.profiling import device_time_ms, profile_call
+
+    plain_x = cum + torch.randn(r, v, generator=g, device=dev)  # no planted ties
+    forms = {"stable sort": lambda a: torch.sort(a, dim=-1, descending=True, stable=True),
+             "topk (block prescreen, int64 keys)": lambda a: topk(a, K)}
+    ms = {}
+    for name, fn in forms.items():
+        ms[name] = cuda_ms(lambda: fn(x))
+        dev_ms = [device_time_ms(profile_call(fn, (a,))[1]) for a in (x, plain_x)]
+        print(f"topk [{r}x{v}, k {K}] {name}: {ms[name]:.4f} ms a call (CUDA events); device "
+              f"{dev_ms[0]:.4f} ms (planted ties) / {dev_ms[1]:.4f} ms (N(0, 1) rows)")
+    print(f"topk [{r}x{v}, k 1/5/8]: indices and values equal to the stable sort's")
+    return ms
 
 
 def bound(nbytes: float, ops: float, ops_s: float) -> tuple[float, str]:
@@ -513,9 +636,12 @@ def check_xent(dev, n: int, v: int, smoothing: float = 0.1) -> dict:
     out["xent_bwd"] = (err, cuda_ms(lambda: xent_bwd_kernel(x, t, lse, *cot)),
                        cuda_ms(lambda: torch.autograd.grad(plain_loss, xr, retain_graph=True)),
                        cuda_ms(lambda: torch.autograd.grad(lib, xr, retain_graph=True)))
+    DEVICE_US["xent_fwd"] = kernel_device_us(lambda: xent_fwd_kernel(x, t))
+    DEVICE_US["xent_bwd"] = kernel_device_us(lambda: xent_bwd_kernel(x, t, lse, *cot))
     for name, (e, ms, plain_ms, lib_ms) in out.items():
         print(f"kernel {name} [float32, {n}x{v}]: max_abs_err {e:.3e}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  F.cross_entropy {lib_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms  device {DEVICE_US[name]:.2f} us per launch  "
+              f"F.cross_entropy {lib_ms:.4f} ms")
     return out
 
 
@@ -642,6 +768,7 @@ def int8_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
     from controllable_xgating_torch.ops.dispatch import set_fused_kernels
     from controllable_xgating_torch.ops.precision import set_compute_dtype
     from controllable_xgating_torch.tools.quant_ab import make_fn
+    from controllable_xgating_torch.utils.profiling import device_time_ms, profile_call
 
     set_compute_dtype("bfloat16")
     set_fused_kernels(None)
@@ -696,6 +823,11 @@ def int8_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
         vs = (run(beam, None, True) == run(beam, None, False)).all(1).float().mean().item()
         print(f"{label} [bfloat16, kernels, not gated] caption agreement with the bf16 projection "
               f"{vs:.4f}; captions/s in turns: bf16 projection {rates['bf16']} int8 {rates['int8']}")
+        # device time per call (torch.profiler), int8 then bf16 projection
+        for quant in (True, False):
+            wall, ka, _ = profile_call(lambda: run(beam, None, quant), ())
+            print(f"{label} [bfloat16, kernels, {'int8' if quant else 'bf16'} projection]: device "
+                  f"time {device_time_ms(ka):.2f} ms per call of 256 videos (wall {wall:.2f} ms)")
     return k7[B * K]
 
 
@@ -772,6 +904,8 @@ def main() -> None:
     set_compute_dtype("bfloat16")
     results = check_kernels(params, dev, "bfloat16", BF16_TOL)
     check_greedy_rows(params, dev, results)
+    check_pos_ragged(dev)
+    check_topk(dev)
 
     # the main path, bf16 policy, kernels on: beam 5, then greedy, each
     # through evaluate_split, counting launches around each run
@@ -859,6 +993,8 @@ def main() -> None:
          (*results["topk_extract"], None)),
     ]
     bounds = {**caption_bounds(params), **xent_bounds(n_rows, VOCAB), **quant_bounds(params)}
+    print("device us per launch (torch.profiler, the path's shapes; bound us): " + json.dumps(
+        {n: [round(DEVICE_US[n], 2), round(bounds[n][0] * 1e3, 2)] for n, *_ in kernel_rows}))
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": r,
          "launches": counts[path][n], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],

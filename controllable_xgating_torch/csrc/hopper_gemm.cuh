@@ -1,6 +1,8 @@
-// The Hopper GEMM mainloop shared by the beam step's two costliest kernels
-// (attn_lstm.cu's pre-activation and cell products, topk_tail.cu's vocab
-// projection under the bf16 policy).
+// The Hopper GEMM mainloop shared by the redesigned kernels under the bf16
+// policy: attn_lstm.cu's pre-activation and cell products, topk_tail.cu's
+// vocab projection and pos_lstm.cu's gates on mma_tile below;
+// int8_vocab.cu on its own loop over the same ring, with its weight as
+// wgmma's register operand (wgmma_m64n128k16_rs).
 //
 // A warpgroup (128 threads) computes a [64, N] f32 tile (N = 128 or 64)
 // of A @ B^T with `wgmma.mma_async` m64nNk16 (bf16 x bf16 -> f32), both
@@ -61,25 +63,34 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A TMA descriptor of a row-major matrix [rows, cols] of `elem_bytes`-byte
+// elements whose rows lie `pitch` elements apart (pitch * elem_bytes % 16
+// == 0, base 16-byte aligned), moved in boxes of [box_rows, box_cols].
+inline cudaError_t make_tmap_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                                const void* base, int rows, int cols, int pitch, int box_cols,
+                                int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(base) & 15) || (pitch * elem_bytes) % 16 || pitch < cols ||
+      rows < 1 || cols < 1)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A TMA descriptor of a row-major bf16 matrix [rows, cols] whose rows lie
 // `pitch` elements apart (pitch % 8 == 0, base 16-byte aligned), read in
 // boxes of [box_rows, 64] with the 128-byte swizzle.
 inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int rows, int cols, int pitch,
                              int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  if ((reinterpret_cast<uintptr_t>(base) & 15) || pitch % 8 || pitch < cols || rows < 1 ||
-      cols < 1)
-    return cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kTileK, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_tmap_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, pitch, kTileK,
+                      box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Dynamic shared memory a kernel asks for: `bytes` of tiles and room to
@@ -235,6 +246,39 @@ __device__ __forceinline__ void wgmma_m64nk16(float (&d)[32], uint64_t desc_a, u
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (+)= A[64 x 16] @ B[128 x 16]^T, A from registers (the m16n8k16 A
+// fragment of warp w's rows 16w .. 16w + 15: a[0] = (row g, k 2q, 2q + 1),
+// a[1] = (row g + 8, same k), a[2] = (row g, k 2q + 8, 2q + 9), a[3] =
+// (row g + 8, same k), g = lane / 4, q = lane % 4, two bf16 a register, the
+// lower k in the low half), B K-major in shared memory. The registers must
+// hold still until the wgmma group that reads them has retired.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // Where element i of a thread's m64nN accumulator lies in the tile: warp

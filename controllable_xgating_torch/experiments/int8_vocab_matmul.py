@@ -11,7 +11,10 @@ through). The fields keep the JAX layout, the vocab axis padded to a
 multiple of 1024 (`n` is the true vocab), so they carry across one to one.
 x is cast to bf16 whatever the compute policy, as in the JAX function.
 `vocab_proj_int8` runs the int8_vocab kernel wrapper on the kernel path
-and the plain version otherwise (`set_fused_kernels(False)`).
+and the plain version otherwise (`set_fused_kernels(False)`). The kernel
+reads the weight K-major: a decode loop attaches that operand once per
+caption call (`with_kernel_operand`), in the `wq_t` field the JAX tuple
+does not have.
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from controllable_xgating_torch.ops.dispatch import fused_enabled
-from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_plain, int8_vocab_proj
+from controllable_xgating_torch.ops.kernels.int8_vocab import (
+    int8_vocab_plain,
+    int8_vocab_proj,
+    int8_vocab_weights,
+)
 
 TILE_N = 1024
 
@@ -34,6 +41,7 @@ class QuantVocabProj(NamedTuple):
     scale: torch.Tensor  # [1, Vpad] f32
     bias: torch.Tensor   # [1, Vpad] f32
     n: int
+    wq_t: Optional[torch.Tensor] = None  # the kernel's K-major wq^T (with_kernel_operand)
 
 
 def quantize_vocab_proj(w: torch.Tensor, b: torch.Tensor) -> QuantVocabProj:
@@ -56,6 +64,12 @@ def quantize_vocab_proj(w: torch.Tensor, b: torch.Tensor) -> QuantVocabProj:
                               bias[None, :].contiguous(), n)
 
 
+def with_kernel_operand(q: QuantVocabProj) -> QuantVocabProj:
+    """q with the kernel's K-major weight operand attached, for every step
+    of a caption call."""
+    return q if q.wq_t is not None else q._replace(wq_t=int8_vocab_weights(q.wq))
+
+
 def _dequant_matmul_plain(x: torch.Tensor, q: QuantVocabProj) -> torch.Tensor:
     """The plain version over the padded width [M, Vpad]."""
     return int8_vocab_plain(x, q.wq, q.scale, q.bias)
@@ -64,5 +78,5 @@ def _dequant_matmul_plain(x: torch.Tensor, q: QuantVocabProj) -> torch.Tensor:
 def vocab_proj_int8(x: torch.Tensor, q: QuantVocabProj, fused: Optional[bool] = None) -> torch.Tensor:
     """Quantized logits [M, n] f32."""
     if fused_enabled(fused):
-        return int8_vocab_proj(x, q.wq, q.scale, q.bias, q.n)
+        return int8_vocab_proj(x, q.wq, q.scale, q.bias, q.n, q.wq_t)
     return _dequant_matmul_plain(x, q)[:, : q.n]

@@ -18,8 +18,9 @@ from the top-K kernel wrapper, which projects, masks and reduces without
 writing the [B*K, V] logits; the other three form the full log-softmax in
 PyTorch: `"grouped"` takes a row-local top-K and merges the K*K survivors
 per video, `"block"` is grouped with the row stage prescreened by 128-wide
-block maxima (`row_topk_block`), and `"flat"` takes one top-K over the
-flattened [B, K*V] pool. `"auto"` picks lanes on the kernel path, and
+block maxima (`row_topk_block`; the port's `topk` prescreens long rows
+itself, so the two run the same code), and `"flat"` takes one top-K over
+the flattened [B, K*V] pool. `"auto"` picks lanes on the kernel path, and
 grouped with `vocab_q` (the weight-only int8 projection, which lanes does
 not take) or off it. Ensembles and diverse beam are not ported yet.
 """
@@ -31,6 +32,7 @@ from typing import Optional
 import torch
 
 from controllable_xgating_torch.data.vocab import BOS, EOS, PAD
+from controllable_xgating_torch.experiments.int8_vocab_matmul import with_kernel_operand
 from controllable_xgating_torch.infer.greedy import mask_special_tokens
 from controllable_xgating_torch.models.captioner import CaptionerParams, encode_for_inference
 from controllable_xgating_torch.models.decoder import (
@@ -43,7 +45,6 @@ from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_weights
 from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk, topk, topk_tail_weights
 
 NEG_INF = -1e30
-_BLOCK = 128  # prescreen window of row_topk_block
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,27 +53,10 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_topk_block(x: torch.Tensor, k: int):
-    """Exact per-row `topk(x, k)` via a block-max prescreen (JAX
-    `row_topk_block`): only a row's k best 128-wide blocks can hold a top-k
-    element, so the exact top-k runs over those k*128 values. Kept blocks
-    are sorted ascending, so the pool is in index order and ties go to the
-    lower index as with `topk`; the tail window, clamped to end at v, has
-    the columns that slid in from the previous block masked to -inf."""
-    r, v = x.shape
-    nb = -(-v // _BLOCK)
-    if nb < k or v <= 4 * k * _BLOCK:
-        return topk(x, k)  # small rows: the prescreen cannot pay
-    pad = nb * _BLOCK - v
-    bm = torch.nn.functional.pad(x, (0, pad), value=-float("inf"))
-    bm = bm.reshape(r, nb, _BLOCK).amax(-1)  # [r, nb]
-    _, blk = topk(bm, k)
-    starts = blk.sort(dim=1).values * _BLOCK  # [r, k], in index order
-    clamped = starts.clamp(max=v - _BLOCK)
-    cols = clamped[:, :, None] + torch.arange(_BLOCK, device=x.device)  # [r, k, 128]
-    vals = x.gather(1, cols.reshape(r, -1)).reshape(r, k, _BLOCK)
-    vals = torch.where(cols >= starts[:, :, None], vals, -float("inf"))
-    scores, pos = topk(vals.reshape(r, k * _BLOCK), k)
-    return scores, cols.reshape(r, -1).gather(1, pos)
+    """Exact per-row top-k by a block-max prescreen (JAX `row_topk_block`):
+    `topk` itself runs that prescreen, so this is `topk(x, k)`, kept under
+    the `block` tail's name."""
+    return topk(x, k)
 
 
 def beam_search(
@@ -132,6 +116,8 @@ def beam_search(
     # the kernels' weight operands, cast once for every step
     kw = attn_lstm_weights(params) if fused else None
     w_op = topk_tail_weights(params.w_out) if lanes else None
+    if fused and vocab_q is not None:
+        vocab_q = with_kernel_operand(vocab_q)
 
     def final_score(cum, lengths):
         if length_penalty > 0.0:

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from controllable_xgating_torch.data.vocab import BOS, EOS, PAD, UNK
+from controllable_xgating_torch.experiments.int8_vocab_matmul import with_kernel_operand
 from controllable_xgating_torch.models.decoder import (
     DecodeContext,
     DecoderParams,
@@ -54,6 +55,8 @@ def greedy_decode(
     alive = torch.ones((b,), dtype=torch.bool, device=dev)
     tokens = torch.full((b, max_len), PAD, dtype=torch.long, device=dev)
     kw = attn_lstm_weights(params) if fused else None
+    if fused and vocab_q is not None:
+        vocab_q = with_kernel_operand(vocab_q)  # the int8 kernel's K-major weight, once
     for t in range(max_len):
         if early_stop and not bool(alive.any()):
             break

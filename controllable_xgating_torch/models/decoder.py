@@ -128,7 +128,8 @@ def decode_step(
     kernel wrapper; a decode loop passes that wrapper's weights, cast once
     by `attn_lstm_weights`, as `kernel_weights`. `vocab_q` (a
     `QuantVocabProj`) swaps the vocab projection for the weight-only int8
-    one, through the int8_vocab kernel wrapper when `fused`.
+    one, through the int8_vocab kernel wrapper when `fused`; a decode loop
+    attaches that kernel's K-major weight to it once (`with_kernel_operand`).
     `return_hidden=True` skips the vocab projection and returns h' in the
     logits slot, for a caller that fuses the projection into its own tail
     (beam's top-K kernel); it wins over `vocab_q`."""

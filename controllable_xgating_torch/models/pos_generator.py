@@ -121,7 +121,8 @@ def pos_greedy_generate(
     tags exclude BOS; rows stop contributing to psi after EOS.
     `early_stop=True` leaves the loop once every row has emitted EOS (one
     host sync per step). `fused=True` routes the cell through the POS LSTM
-    kernel wrapper."""
+    kernel (`PosLstmRollout`: operands made once, one gather and one
+    launch a step)."""
     b = summary.shape[0]
     dev = summary.device
     h, c = _init_state(params, summary)
@@ -130,12 +131,9 @@ def pos_greedy_generate(
     hidden = params.lstm.hidden_dim
     s_gates = _summary_gates(params, summary)
     if fused:
-        from controllable_xgating_torch.ops.kernels.pos_lstm import (
-            pos_lstm_step_kernel,
-            pos_lstm_weights,
-        )
+        from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout
 
-        weights = pos_lstm_weights(params)
+        cell = PosLstmRollout(params, h, s_gates)  # the kernel's operands, made once
 
     tags = torch.full((b, max_len), PAD, dtype=torch.long, device=dev)
     hs = summary.new_zeros((b, max_len, hidden))
@@ -144,11 +142,11 @@ def pos_greedy_generate(
         if early_stop and not bool(alive.any()):
             break
         step_mask[:, t] = alive
-        e = params.embed[tok]
         if fused:
-            h, c = pos_lstm_step_kernel(params, e, s_gates, h, c, weights)
+            h, c = cell.step(c, tok=tok)
             h, c = h.to(summary.dtype), c.to(summary.dtype)
         else:
+            e = params.embed[tok]
             h, c = lstm_cell_pre(params.lstm, _emb_gates(params, e) + s_gates, h, c)
         logits = mm(h, params.w_out) + params.b_out.float()
         logits[:, PAD] = -1e30  # never training targets, never outputs

@@ -101,13 +101,16 @@ def build() -> str:
 
 _SIGNATURES = {
     "cxg_xgate_fwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
-    "cxg_pos_lstm_fwd": [_I] + [_P] * 9 + [_I] * 3 + [_P],
+    "cxg_pos_lstm_fwd": [_P] * 9 + [_I] * 3 + [_P],
+    "cxg_pos_lstm_bf16_plan": [_P] * 5 + [_I] * 3,
+    "cxg_pos_lstm_bf16_fwd": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P],
+    "cxg_pos_lstm_maps_bytes": [],
     "cxg_attn_lstm_fwd": [_P] * 21 + [_I] * 6 + [_P],
     "cxg_attn_lstm_bf16_fwd": [_P] * 17 + [_I] * 6 + [_P],
     "cxg_topk_tail_fwd": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "cxg_xent_fwd": [_P] * 5 + [_I] * 2 + [_P],
     "cxg_xent_bwd": [_P] * 7 + [_I] * 2 + [_P],
-    "cxg_int8_vocab_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "cxg_int8_vocab_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "cxg_topk_extract_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_P],
     "cxg_xgate_smem_bytes": [_I],
     "cxg_attn_smem_bytes": [_I] * 3,

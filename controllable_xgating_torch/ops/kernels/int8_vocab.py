@@ -9,18 +9,20 @@ Counterpart of the Pallas kernel of `experiments/int8_vocab_matmul.py`
 x is cast to bf16 whatever the compute policy, as the JAX function does;
 int8 -> bf16 is exact, the products and sums are f32. `wq` [K, Vpad] int8
 and `scale`, `bias` [1, Vpad] f32 carry the vocab padded to a multiple of
-1024 (`experiments/int8_vocab_matmul.py`); the kernel reads the padded
-rows, which keep every int8 row 16-byte aligned, and writes only the n
-true columns.
+1024 (`experiments/int8_vocab_matmul.py`). The kernel reads the weight
+K-major, `int8_vocab_weights(wq)` = wq^T [Vpad, round_up(K, 64)] in its
+fragment order, made once per caption call, and writes only the n true
+columns.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from controllable_xgating_torch.ops.kernels import build
 
-_BK, _BN = 32, 128  # the kernel's stage depth and tile width
+_BN = 128  # the kernel's vocab tile
 
 
 def int8_vocab_plain(x, wq, scale, bias) -> torch.Tensor:
@@ -30,41 +32,57 @@ def int8_vocab_plain(x, wq, scale, bias) -> torch.Tensor:
     return acc * scale + bias
 
 
+def int8_vocab_weights(wq: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight operand: wq^T [Vpad, round_up(K, 64)] int8,
+    K-major, zero past K, the 64 bytes of each K block in fragment order:
+    byte 16q + 4kk + 2h + b holds k = 16kk + 8h + 2q + b, so that the four
+    16-deep chunks' bytes of one thread (q = lane % 4) lie together."""
+    k, vpad = wq.shape
+    kp = -(-k // 64) * 64
+    p = torch.arange(64)
+    src = 16 * ((p % 16) // 4) + 8 * ((p % 4) // 2) + 2 * (p // 16) + p % 2
+    w = F.pad(wq.t(), (0, kp - k)).reshape(vpad, kp // 64, 64)
+    return w[:, :, src.to(wq.device)].reshape(vpad, kp).contiguous()
+
+
 def int8_vocab_proj(
     x: torch.Tensor,      # [M, K]
     wq: torch.Tensor,     # [K, Vpad] int8
     scale: torch.Tensor,  # [1, Vpad] f32
     bias: torch.Tensor,   # [1, Vpad] f32
     n: int,
+    wq_t: torch.Tensor | None = None,  # int8_vocab_weights(wq), else made here
 ) -> torch.Tensor:
     """Quantized logits [M, n] f32: one kernel launch for CUDA tensors, the
     plain version for CPU tensors."""
     if x.device.type == "cpu":
         return int8_vocab_plain(x, wq, scale, bias)[:, :n]
     m, k = x.shape
-    ldw = wq.shape[1]
-    if k % _BK or ldw % _BN or not 0 < n <= ldw:
+    vpad = wq.shape[1]
+    if k % 8 or vpad % _BN or not 0 < n <= vpad:
         raise ValueError(
-            f"int8_vocab kernel takes K % {_BK} == 0 and a padded width that is a multiple of "
-            f"{_BN} and >= n; got K {k}, width {ldw}, n {n}"
+            f"int8_vocab kernel takes K % 8 == 0 (16-byte rows of x for TMA) and a padded width "
+            f"that is a multiple of {_BN} and >= n; got K {k}, width {vpad}, n {n}"
         )
     dev, f32 = x.device, torch.float32
+    wq_t = int8_vocab_weights(wq) if wq_t is None else wq_t
+    ldq = wq_t.shape[1]
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # a view off 16-byte alignment: the kernel loads 16 bytes
+    if xb.data_ptr() % 16:  # a view off 16-byte alignment: TMA reads 16-byte rows
         xb = xb.clone()
     out = torch.empty((m, n), dtype=f32, device=dev)
     if m == 0:
         return out
     ptrs = [
         build.check(xb, "x", (m, k), torch.bfloat16, dev),
-        build.check(wq, "wq", (k, ldw), torch.int8, dev),
-        build.check(scale, "scale", (1, ldw), f32, dev),
-        build.check(bias, "bias", (1, ldw), f32, dev),
+        build.check(wq_t, "wq_t", (vpad, -(-k // 64) * 64), torch.int8, dev),
+        build.check(scale, "scale", (1, vpad), f32, dev),
+        build.check(bias, "bias", (1, vpad), f32, dev),
         build.check(out, "out", (m, n), f32, dev),
     ]
     if ptrs[1] % 16:
-        raise ValueError("int8_vocab kernel: wq must be 16-byte aligned")
-    rc = build.library().cxg_int8_vocab_fwd(*ptrs, m, k, n, ldw, build.stream_ptr(dev))
+        raise ValueError("int8_vocab kernel: wq_t must be 16-byte aligned")
+    rc = build.library().cxg_int8_vocab_fwd(*ptrs, m, k, n, vpad, ldq, build.stream_ptr(dev))
     build.raise_on_error(rc, "int8_vocab")
     int8_vocab_proj.launches += 1
     return out

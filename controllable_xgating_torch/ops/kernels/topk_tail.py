@@ -28,11 +28,53 @@ CHUNK_COLS = 512  # vocab columns per block of the first kernel
 MAX_K = 8
 
 
+_ID_MASK = 0xFFFFFFFF
+_BLOCK = 128  # prescreen block of topk
+
+
+def _key_topk(x: torch.Tensor, ids: torch.Tensor, k: int) -> torch.Tensor:
+    """The ids of the k largest (value, -id) pairs of x [R, n] f32 with ids
+    [R, n] or [n] int64, best first: one `torch.topk` on unique int64 keys,
+    whose high 32 bits are the value's order-preserving int32 image (its
+    bits, those of a negative value XOR 0x7FFFFFFF; -0.0 made +0.0 first, as
+    the stable sort takes them as equal) and whose low 32 bits are
+    0xFFFFFFFF - id, so that of two equal values the lower id wins."""
+    bits = (x + 0.0).view(torch.int32)  # -0.0 + 0.0 is +0.0
+    bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # a negative value's low 31 bits flipped
+    top = torch.topk((bits.long() << 32) | (_ID_MASK - ids), k, dim=-1).values
+    return _ID_MASK - (top & _ID_MASK)
+
+
 def topk(x: torch.Tensor, k: int):
-    """`lax.top_k` on the last axis: sorted descending, lower index first
-    among equal values (a stable sort; `torch.topk` promises no tie order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """`lax.top_k` on the last axis of f32 `x`: sorted descending, lower
+    index first among equal values, the order of a stable descending sort.
+
+    `torch.topk` promises no tie order, so it runs on unique int64 keys
+    (`_key_topk`). A row longer than 4 k blocks of 128 is first cut to its
+    k best blocks, ranked by (block max desc, block index asc): a block
+    outside them has k blocks before it, each holding a value above its
+    best, or an equal value at a lower id, so it holds none of the top k.
+    The values are gathered from `x`."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"topk takes float32, got {x.dtype}")
+    shape, v = x.shape, x.shape[-1]
+    x2 = x.reshape(-1, v)
+    dev = x.device
+    if v <= 4 * k * _BLOCK:
+        idx = _key_topk(x2, torch.arange(v, device=dev), k)
+    else:
+        full = v // _BLOCK
+        bm = x2.unfold(1, _BLOCK, _BLOCK).amax(-1)  # [R, full] maxima of the whole blocks
+        if v > full * _BLOCK:
+            bm = torch.cat([bm, x2[:, full * _BLOCK:].amax(-1, keepdim=True)], 1)
+        blk = _key_topk(bm, torch.arange(bm.shape[1], device=dev), k)
+        cols = (blk[:, :, None] * _BLOCK + torch.arange(_BLOCK, device=dev)).flatten(1)
+        pool = x2.gather(1, cols.clamp(max=v - 1))
+        # a column past the row's end (in the last block) loses to every
+        # column of it: the pool holds at least k real ones
+        pool = torch.where(cols < v, pool, -float("inf"))
+        idx = _key_topk(pool, torch.where(cols < v, cols, _ID_MASK), k)
+    return x2.gather(1, idx).reshape(*shape[:-1], k), idx.reshape(*shape[:-1], k)
 
 
 def logits_topk_plain(h, w_out, b_out, k: int, block_unk: bool = False):

@@ -66,6 +66,24 @@ def device_time_ms(key_averages) -> float:
     ) / 1e3
 
 
+def kernel_device_us(fn, calls: int = 10) -> float:
+    """Device microseconds per call of `fn` spent in the port's own CUDA
+    kernels (namespace `cxg`, so not the casts or copies a wrapper makes),
+    over `calls` calls under `torch.profiler` after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "cxg::" in e.key)
+    return total / calls
+
+
 def caption_calls(cfg, dev):
     """[(name, fn, args)] of the caption path; fn is built under the
     current kernel setting."""

@@ -60,18 +60,16 @@ def test_xgate_kernel(dev, policy, tol, rows, da, dm, h):
 @pytest.mark.parametrize("b,e,h", [(35, 20, 48), (256, 512, 512)])
 def test_pos_lstm_kernel(dev, policy, tol, b, e, h):
     from controllable_xgating_torch.models.pos_generator import _summary_gates, init_pos_generator
-    from controllable_xgating_torch.ops.kernels.pos_lstm import (
-        pos_lstm_step_kernel,
-        pos_lstm_step_plain,
-    )
+    from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout, pos_lstm_step_plain
 
     g, gd = gen(dev)
     pos = init_pos_generator(g, 35, 2 * h, h, e, 64).to(dev)
-    emb = torch.randn(b, e, generator=gd, device=dev)
+    tok = torch.randint(0, 35, (b,), generator=gd, device=dev)
     hs, cs = torch.tanh(torch.randn(b, h, generator=gd, device=dev)), torch.randn(b, h, generator=gd, device=dev)
     with precision(policy):
         sg = _summary_gates(pos, torch.tanh(torch.randn(b, 2 * h, generator=gd, device=dev)))
-        for a, r in zip(pos_lstm_step_kernel(pos, emb, sg, hs, cs), pos_lstm_step_plain(pos, emb, sg, hs, cs)):
+        ref = pos_lstm_step_plain(pos, pos.embed[tok], sg, hs, cs)
+        for a, r in zip(PosLstmRollout(pos, hs, sg).step(cs, tok), ref):
             close(a, r, tol)
     assert kernels.launch_counts()["pos_lstm"] == 1
 
@@ -213,9 +211,9 @@ def test_topk_tail_kernel_redesign(dev, policy, r, v, k, block_unk):
 
 
 def test_redesigned_kernels_run_on_wgmma(dev):
-    """The SASS of the built library: HGMMA in K3's pre-activation GEMM
-    and in K4's chunk kernel (bf16), and no TF32 product anywhere (the f32
-    policy's kernels stay full f32)."""
+    """The SASS of the built library: HGMMA in K3's pre-activation GEMM,
+    K4's chunk kernel, K7 and K2's bf16 kernel, and no TF32 product
+    anywhere (the f32 policy's kernels stay full f32)."""
     import shutil
     import subprocess
 
@@ -228,7 +226,8 @@ def test_redesigned_kernels_run_on_wgmma(dev):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         funcs[name.strip()] = body
-    for kernel in ("pre_gemm_kernel", "topk_chunk_wgmma_kernel"):
+    for kernel in ("pre_gemm_kernel", "topk_chunk_wgmma_kernel", "int8_vocab_kernel",
+                   "pos_lstm_wgmma_kernel"):
         bodies = [body for name, body in funcs.items() if kernel in name]
         assert bodies and all("HGMMA" in body for body in bodies), kernel
     assert "TF32" not in sass
@@ -329,9 +328,12 @@ def test_wrappers_raise_on_shapes_they_do_not_take(dev):
         logits_topk(h[:, :6], torch.randn(6, 100, device=dev), torch.zeros(100, device=dev), 5)
     with pytest.raises(ValueError, match="k <="):
         logits_topk_extract_kernel(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
-    q = quantize_vocab_proj(torch.randn(8, 100, device=dev), torch.zeros(100, device=dev))
-    with pytest.raises(ValueError, match="K % 32"):  # depth not a multiple of the stage
-        int8_vocab_proj(h, q.wq, q.scale, q.bias, q.n)
+    q = quantize_vocab_proj(torch.randn(6, 100, device=dev), torch.zeros(100, device=dev))
+    with pytest.raises(ValueError, match="K % 8"):  # x's rows must be 16 bytes for TMA
+        int8_vocab_proj(h[:, :6], q.wq, q.scale, q.bias, q.n)
+    q = quantize_vocab_proj(torch.randn(8, 102, device=dev), torch.zeros(102, device=dev))
+    with pytest.raises(ValueError, match="padded width"):  # n past the padded width
+        int8_vocab_proj(h, q.wq, q.scale, q.bias, q.wq.shape[1] + 1)
     w = init_xgate(torch.Generator().manual_seed(0), 8, 8, 1024).to(dev)  # too wide for smem
     with pytest.raises(ValueError, match="shared memory"):
         xgate_fuse_kernel(w, torch.randn(4, 8, device=dev), torch.randn(4, 8, device=dev))
@@ -517,3 +519,84 @@ def test_quantized_path_kernels_match_plain_path(dev, beam):
     assert counts["int8_vocab"] == counts["attn_lstm"] == 10
     assert counts["topk_tail"] == 0
     assert kernels.launch_counts() == counts  # the plain path launched nothing
+
+
+@pytest.mark.parametrize("m", [1, 77, 256, 1280])
+@pytest.mark.parametrize("k,n", [(512, 10000), (96, 1300), (96, 1301), (40, 130)])
+def test_int8_vocab_kernel_redesign(dev, m, k, n):
+    """K7 (TMA + wgmma with the widened weight in registers, persistent
+    tiles) against its plain version, on the K-major operand made once
+    (`int8_vocab_weights`): rows ragged against the 128-row tiles, depths
+    not a multiple of 64, widths not a multiple of 128 (nor of 4: the
+    output rows off 16-byte alignment). The plain version
+    is held at the f32 bound: both multiply the same bf16 operands."""
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.ops.kernels.int8_vocab import (
+        int8_vocab_plain,
+        int8_vocab_proj,
+        int8_vocab_weights,
+    )
+
+    _, gd = gen(dev)
+    q = quantize_vocab_proj(torch.randn(k, n, generator=gd, device=dev) * k ** -0.5,
+                            torch.randn(n, generator=gd, device=dev) * 0.1)
+    x = torch.tanh(torch.randn(m, k, generator=gd, device=dev))
+    wq_t = int8_vocab_weights(q.wq)
+    assert wq_t.shape == (q.wq.shape[1], -(-k // 64) * 64)
+    out = int8_vocab_proj(x, q.wq, q.scale, q.bias, n, wq_t)
+    assert out.shape == (m, n)
+    close(out, int8_vocab_plain(x, q.wq, q.scale, q.bias)[:, :n], F32_TOL)
+    assert kernels.launch_counts()["int8_vocab"] == 1
+
+
+K2_TOL = {"float32": F32_TOL, "bfloat16": dict(rtol=0.0, atol=1e-5)}
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 37, 256])
+@pytest.mark.parametrize("e,h", [(512, 512), (20, 48), (100, 72)])
+def test_pos_lstm_kernel_redesign(dev, policy, b, e, h):
+    """K2 through a rollout (`PosLstmRollout`): three steps on gathered
+    tags, each against the plain step from the same state within the
+    bound; rows ragged against the 64-row tiles, Ep and H not multiples of
+    64 (Ep % 8 != 0 too). Under bf16 the kernel's own bf16 copy of h' (the
+    next step's operand) is exactly h' rounded to nearest even."""
+    from controllable_xgating_torch.models.pos_generator import _summary_gates, init_pos_generator
+    from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout, pos_lstm_step_plain
+
+    g, gd = gen(dev)
+    pos = init_pos_generator(g, 35, 2 * h, h, e, 64).to(dev)
+    hs = torch.tanh(torch.randn(b, h, generator=gd, device=dev))
+    cs = torch.randn(b, h, generator=gd, device=dev)
+    with precision(policy):
+        sg = _summary_gates(pos, torch.tanh(torch.randn(b, 2 * h, generator=gd, device=dev)))
+        cell = PosLstmRollout(pos, hs, sg)
+        for _ in range(3):
+            tok = torch.randint(0, 35, (b,), generator=gd, device=dev)
+            ref = pos_lstm_step_plain(pos, pos.embed[tok], sg, hs, cs)
+            hs, cs = cell.step(cs, tok=tok)
+            for a, r in zip((hs, cs), ref):
+                close(a, r, K2_TOL[policy])
+            if policy == "bfloat16":
+                assert torch.equal(cell.hb[cell.cur][:, :h], hs.bfloat16())
+    assert kernels.launch_counts()["pos_lstm"] == 3
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("shape", [(1280, 10000), (256, 50000), (7, 129)])
+def test_topk_keeps_the_stable_sort_order_on_the_card(dev, shape, k):
+    """The beam tails' top-K on the card: the stable sort's indices and
+    values exactly, on rows with planted ties across the whole row, +-0.0,
+    -inf and -1e30."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import topk
+
+    gd = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(*shape, generator=gd, device=dev)
+    x[::2] = torch.randint(-2, 3, (x[::2].shape), generator=gd, device=dev).float()
+    x[:, ::7] = -0.0
+    x[:, 1::11] = -1e30
+    x[1::3, 2::13] = -float("inf")
+    vals, idx = topk(x, k)
+    ref_v, ref_i = torch.sort(x, dim=-1, descending=True, stable=True)
+    assert torch.equal(idx, ref_i[:, :k])
+    assert torch.equal(vals, ref_v[:, :k])

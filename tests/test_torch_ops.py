@@ -192,7 +192,7 @@ def _pos_and_decoder(seed):
 def test_pos_lstm_kernel_plain_matches_pallas():
     from controllable_xgating_tpu.models.pos_generator import _summary_gates
     from controllable_xgating_tpu.ops.pallas.pos_lstm import pos_lstm_step_pallas
-    from controllable_xgating_torch.ops.kernels.pos_lstm import pos_lstm_step_kernel
+    from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout
 
     jp, tp = _pos_and_decoder(17)
     summary, h, c = arrays(18, (5, 32), (5, 16), (5, 16))
@@ -201,7 +201,7 @@ def test_pos_lstm_kernel_plain_matches_pallas():
     sg = _summary_gates(jp.pos, jnp.asarray(summary))
     jh, jc = pos_lstm_step_pallas(jp.pos, jnp.asarray(e), sg, jnp.asarray(h), jnp.asarray(c),
                                   interpret=True)
-    th, tc = pos_lstm_step_kernel(tp.pos, T(e), T(np.asarray(sg)), T(h), T(c))
+    th, tc = PosLstmRollout(tp.pos, T(h), T(np.asarray(sg))).step(T(c), torch.from_numpy(tok))
     close(th, jh)
     close(tc, jc)
     assert th.dtype == tc.dtype == torch.float32
@@ -269,8 +269,9 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     assert torch.equal(xgate.xgate_fuse_kernel(tp.encoder.xgate, T(xa), T(xm)),
                        xgate.xgate_fuse_plain(tp.encoder.xgate, T(xa), T(xm)))
     e, sg, h, c = map(T, arrays(24, (2, 12), (2, 64), (2, 16), (2, 16)))
-    for a, b in zip(pos_lstm.pos_lstm_step_kernel(tp.pos, e, sg, h, c),
-                    pos_lstm.pos_lstm_step_plain(tp.pos, e, sg, h, c)):
+    tok = torch.tensor([4, 9])
+    for a, b in zip(pos_lstm.PosLstmRollout(tp.pos, h, sg).step(c, tok),
+                    pos_lstm.pos_lstm_step_plain(tp.pos, tp.pos.embed[tok], sg, h, c)):
         assert torch.equal(a, b)
     keys, encp, psi = map(T, arrays(25, (2, 3, 14), (2, 3, 16), (2, 16)))
     args = (tp.decoder, e, h, c, keys, encp, psi, None)
@@ -447,6 +448,116 @@ def test_packed_weights_rebuild_the_plain_step(hd, e, a, g):
     close(alpha, ref_alpha.numpy())
     close(c_new, ref_c.numpy())
     close(torch.sigmoid(o) * torch.tanh(c_new), ref_h.numpy())
+
+
+def _planted_rows(shape, seed):
+    """f32 rows with ties across the whole row, +-0.0, -inf and -1e30:
+    half-integers on even rows, N(0, 1) draws on odd ones, a tie for the
+    top planted far apart, and every fourth row a finished beam's (0 at
+    PAD, -1e30 elsewhere)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x2 = x.reshape(-1, shape[-1])
+    x2[::2] = rng.integers(-3, 4, x2[::2].shape) * 0.5
+    x2[1::2, [3, shape[-1] - 2]] = x2[1::2].max(-1, keepdims=True) + 1.0
+    x2[:, ::7] = -0.0
+    x2[:, 1::11] = -1e30
+    x2[:, 2::13] = -np.inf
+    x2[3::4] = np.where(np.arange(shape[-1]) == 0, 0.0, -1e30)
+    return torch.from_numpy(x2.reshape(shape))
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("shape", [(40,), (7, 40), (6, 3000), (9, 10000), (4, 5 * 10000),
+                                   (5, 2561), (3, 5121)])
+def test_topk_equals_the_stable_sort(shape, k):
+    """The tails' top-K (int64 keys, a block prescreen past 4 k blocks of
+    128) against `torch.sort(..., stable=True)`: indices and values equal,
+    on rows of the grouped tail's, the flat tail's [B, K*V] and ragged
+    widths (a last block of 1 column)."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import topk
+
+    x = _planted_rows(shape, seed=sum(shape) + k)
+    vals, idx = topk(x, k)
+    ref_v, ref_i = torch.sort(x, dim=-1, descending=True, stable=True)
+    assert torch.equal(idx, ref_i[..., :k])
+    assert torch.equal(vals, ref_v[..., :k])
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_topk_takes_the_lowest_ids_of_a_row_of_minus_inf(k):
+    """A row whose top-K must include -inf entries: the lowest ids, and
+    never a column of the prescreen's padding past the row's end."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import topk
+
+    x = torch.full((2, 5121), -float("inf"))
+    x[:, [5120, 4000]] = 1.0
+    vals, idx = topk(x, k)
+    want = ([4000, 5120] + list(range(k)))[:k]
+    assert idx.tolist() == [want] * 2
+    assert torch.equal(vals, torch.sort(x, dim=-1, descending=True, stable=True)[0][:, :k])
+
+
+@pytest.mark.parametrize("hd,e", [(16, 12), (48, 20), (72, 100), (64, 64)])
+def test_pos_packed_operand_rebuilds_the_plain_step(hd, e):
+    """In f32 on the CPU, the bf16 POS kernel's data flow on its operands:
+    A = [e | h] tiles (e's K padded to a multiple of 64, as TMA's zero fill
+    pads it), B = `pack_pos_weights` (gate_perm rows, zero K padding), plus
+    `pack_pos_addend` (s_gates + b in gate_perm order), the LSTM tail on a
+    thread's four gate columns, gives pos_lstm_step_plain's h', c'."""
+    from controllable_xgating_torch.models.pos_generator import _summary_gates, init_pos_generator
+    from controllable_xgating_torch.ops.kernels.attn_lstm import gate_perm
+    from controllable_xgating_torch.ops.kernels.pos_lstm import (
+        pack_pos_addend,
+        pack_pos_weights,
+        pos_lstm_step_plain,
+    )
+
+    pos = init_pos_generator(torch.Generator().manual_seed(2), 35, 2 * hd, hd, e, 24)
+    r = 5
+    emb, h, c, summ = map(T, arrays(31, (r, e), (r, hd), (r, hd), (r, 2 * hd)))
+    h = torch.tanh(h)
+    with t_prec.precision("float32"):
+        sg = _summary_gates(pos, torch.tanh(summ))
+        ref_h, ref_c = pos_lstm_step_plain(pos, emb, sg, h, c)
+        w = pack_pos_weights(pos, torch.float32)
+    e64, h64 = -(-e // 64) * 64, -(-hd // 64) * 64
+    perm = gate_perm(hd)
+    assert w.shape == (len(perm), e64 + h64)
+    assert not w[:, e:e64].any() and not w[:, e64 + hd:].any() and not w[perm < 0].any()
+    a = torch.cat([torch.nn.functional.pad(emb, (0, e64 - e)),
+                   torch.nn.functional.pad(h, (0, h64 - hd))], 1)
+    gates_p = a @ w.t() + pack_pos_addend(sg, pos.lstm.b)
+    # thread q of 16-column block j: unit 4j + q's i, f, g, o at 2q, 2q + 1, 8 + 2q, 9 + 2q
+    for j in range(len(perm) // 16):
+        for q in range(4):
+            u = 4 * j + q
+            if u >= hd:
+                assert not gates_p[:, 16 * j + 2 * q].any()
+                continue
+            i, f, g, o = (gates_p[:, 16 * j + col] for col in (2 * q, 2 * q + 1, 8 + 2 * q, 9 + 2 * q))
+            c_new = torch.sigmoid(f) * c[:, u] + torch.sigmoid(i) * torch.tanh(g)
+            close(c_new, ref_c[:, u].numpy())
+            close(torch.sigmoid(o) * torch.tanh(c_new), ref_h[:, u].numpy())
+
+
+def test_pos_rollout_on_the_cpu_is_the_plain_step():
+    """`PosLstmRollout` on CPU tensors: four steps on gathered tags equal
+    the plain step chained from the same state, and count no launch."""
+    from controllable_xgating_torch.models.pos_generator import _summary_gates, init_pos_generator
+    from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout, pos_lstm_step_plain
+
+    pos = init_pos_generator(torch.Generator().manual_seed(3), 35, 32, 16, 12, 24)
+    h, c, summ = map(T, arrays(32, (4, 16), (4, 16), (4, 32)))
+    sg = _summary_gates(pos, summ)
+    kernels.reset_launch_counts()
+    cell = PosLstmRollout(pos, h, sg)
+    rh, rc = h, c
+    for tok in map(torch.tensor, ([3, 5, 7, 2], [1, 1, 9, 4], [6, 0, 2, 8], [11, 3, 3, 0])):
+        h, c = cell.step(c, tok=tok)
+        rh, rc = pos_lstm_step_plain(pos, pos.embed[tok], sg, rh, rc)
+        assert torch.equal(h, rh) and torch.equal(c, rc)
+    assert kernels.launch_counts()["pos_lstm"] == 0
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():

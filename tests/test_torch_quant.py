@@ -103,6 +103,38 @@ def test_vocab_proj_int8_matches_jax(policy):
         np.testing.assert_allclose(out.numpy(), ref[:, :1300], **TOL)
 
 
+@pytest.mark.parametrize("k,n", [(64, 1300), (96, 1300), (512, 2048), (20, 40)])
+def test_kernel_operand_reproduces_the_plain_version_exactly(k, n):
+    """The int8 kernel's K-major operand (`int8_vocab_weights`), read as the
+    kernel reads it (thread q of a row takes bytes 16q .. 16q + 15 of each
+    64-byte K block; byte 4kk + 2h + b is chunk kk's k = 16kk + 8h + 2q +
+    b), rebuilds wq exactly, zero past K: on integer inputs, whose sums are
+    exact in any order, the logits equal `int8_vocab_plain`'s bit for bit.
+    `with_kernel_operand` attaches it once and leaves wq, scale, bias and n
+    as the JAX function made them."""
+    from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_plain, int8_vocab_weights
+
+    w, b = rand_proj(k, n, seed=k + n)
+    q = t_q.quantize_vocab_proj(T(w), T(b))
+    wt = int8_vocab_weights(q.wq)
+    vpad, kp = wt.shape
+    assert wt.dtype == torch.int8 and vpad == q.wq.shape[1] and kp == -(-k // 64) * 64
+    seen = torch.zeros(vpad, kp, dtype=torch.int8)
+    for blk in range(kp // 64):
+        for qq in range(4):
+            for kk in range(4):
+                for h in range(2):
+                    for bb in range(2):
+                        seen[:, 64 * blk + 16 * kk + 8 * h + 2 * qq + bb] = \
+                            wt[:, 64 * blk + 16 * qq + 4 * kk + 2 * h + bb]
+    assert torch.equal(seen[:, :k].t(), q.wq) and not seen[:, k:].any()
+    x = torch.from_numpy(np.random.default_rng(5).integers(-4, 5, (7, k)).astype(np.float32))
+    out = (x @ seen[:, :k].float().t()) * q.scale + q.bias
+    assert torch.equal(out, int8_vocab_plain(x, q.wq, q.scale, q.bias))
+    qk = t_q.with_kernel_operand(q)
+    assert torch.equal(qk.wq_t, wt) and qk[:4] == q[:4] and t_q.with_kernel_operand(qk) is qk
+
+
 def make_cfg(vocab=40):
     """A narrow config (also used by tests/test_torch_beam_tails.py)."""
     return Config().replace_flat({
