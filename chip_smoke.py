@@ -17,11 +17,14 @@ Phases, each fatal on failure:
      held against the beam tail's kernel (K4) on the same inputs; under
      bf16, K3 and K4 again at greedy's 256 rows (timed beside beam's
      1280), and cuBLAS's bare bf16 projection h @ w_out at the beam shape
-     as a yardstick for K4's wgmma mainloop; the POS LSTM step (K2) as
-     the rollout takes it (`PosLstmRollout`), and again at a ragged shape
-     (77 rows, Ep 100, H 72) under both policies for three steps; the
-     device microseconds per launch of every kernel at its path's shape
-     (`torch.profiler`, the port's own kernels only);
+     as a yardstick for K4's wgmma mainloop; K6 and K4 in turns at k = 1,
+     5, 8 (device us: each epilogue's selection cost); the POS LSTM step
+     (K2) as the rollout takes it (`PosLstmRollout`), and again at a
+     ragged shape (77 rows, Ep 100, H 72) under both policies for three
+     steps; K1's routes at 77 rows, da 40, dm 24 (bf16: the wgmma chain at
+     H 136, the SIMT kernel at H 132; f32: SIMT), each route read from the
+     profiler; the device microseconds per launch of every kernel at its
+     path's shape (`torch.profiler`, the port's own kernels only);
   3b. the beam tails' `topk` on the quantized beam's candidate matrix
      [1280, 10000] with planted ties, +-0.0, -1e30 and -inf: indices and
      values equal to `torch.sort(..., stable=True)` at k = 1, 5, 8; both
@@ -46,7 +49,10 @@ Phases, each fatal on failure:
      only, the agreement with the bf16 projection, the captions/s of
      both in turns and the device time of one call of each;
   7. one beam-5 call per full log-softmax tail (grouped, flat, block), plain
-     path, unquantized: the tokens must be equal;
+     path, unquantized: the tokens must be equal; then beam 10 (wider
+     than the lanes tail's k <= 8) through `make_beam_caption_fn` with the
+     kernels: no topk_tail launch, under bf16 the tokens of the explicit
+     grouped tail, under f32 >= 98% agreement with the plain path;
   8. training at MSR-VTT width (batch 64 x 5 captions, vocab 10000, 35 POS
      tags) on seeded features and captions through `TrainBatchIterator`:
      the cross-entropy kernels (K5, forward and backward) against their
@@ -117,6 +123,12 @@ DEVICE_US: dict = {}
 
 def kernel_device_us(fn) -> float:
     from controllable_xgating_torch.utils.profiling import kernel_device_us as measure
+
+    return measure(fn)
+
+
+def kernel_device_split(fn) -> dict:
+    from controllable_xgating_torch.utils.profiling import kernel_device_split as measure
 
     return measure(fn)
 
@@ -200,8 +212,6 @@ def kernel_cases(params, dev, r: int = B * K):
         topk_tail,
         xgate,
     )
-    from controllable_xgating_torch.ops.precision import compute_dtype
-
     g = torch.Generator(device=dev).manual_seed(7)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     ri = lambda lo, hi, s: torch.randint(lo, hi, s, generator=g, device=dev)
@@ -222,10 +232,10 @@ def kernel_cases(params, dev, r: int = B * K):
     # the rollout's step, as pos_greedy_generate takes it: the first call
     # starts from h_pos (the one held against the plain version)
     pos_cell = pos_lstm.PosLstmRollout(pos, h_pos, sg, pos_w)
-    w_out = dec.w_out.to(compute_dtype())
     w_op = topk_tail.topk_tail_weights(dec.w_out)
+    xg_ops = xgate.xgate_weights(enc.xgate)
     return [
-        ("xgate", lambda: xgate.xgate_fuse_kernel(enc.xgate, xa, xm),
+        ("xgate", lambda: xgate.xgate_fuse_kernel(enc.xgate, xa, xm, xg_ops),
          lambda: xgate.xgate_fuse_plain(enc.xgate, xa, xm)),
         ("pos_lstm", lambda: pos_cell.step(c_pos, tok=tok_pos),
          lambda: pos_lstm.pos_lstm_step_plain(pos, e_pos, sg, h_pos, c_pos)),
@@ -233,7 +243,8 @@ def kernel_cases(params, dev, r: int = B * K):
          lambda: attn_lstm.attn_lstm_step_plain(*step)),
         ("topk_tail", lambda: topk_tail.logits_topk(h_out, dec.w_out, dec.b_out, K, False, w_op),
          lambda: topk_tail.logits_topk_plain(h_out, dec.w_out, dec.b_out, K)),
-        ("topk_extract", lambda: topk_extract.logits_topk_extract_kernel(h_out, w_out, dec.b_out, K),
+        ("topk_extract",
+         lambda: topk_extract.logits_topk_extract_kernel(h_out, dec.w_out, dec.b_out, K, w_op),
          lambda: topk_extract.logits_topk_extract_plain(h_out, dec.w_out, dec.b_out, K)),
     ], (h_out, dec.w_out, dec.b_out)
 
@@ -276,8 +287,11 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         dev_us = ""
         if policy == "bfloat16":
-            DEVICE_US[name] = kernel_device_us(kern)
+            split = kernel_device_split(kern)
+            DEVICE_US[name] = sum(split.values())
             dev_us = f"  device {DEVICE_US[name]:.2f} us per launch"
+            if len(split) > 1:  # a wrapper call of several kernels
+                dev_us += " (" + ", ".join(f"{n} {us:.2f}" for n, us in split.items()) + ")"
         print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms{dev_us}")
         out[name] = (err, ms, plain_ms)
@@ -430,6 +444,82 @@ def check_pos_ragged(dev) -> None:
                              f"plain| = {err:.3e} outside {tol}")
         print(f"kernel pos_lstm [{policy}, {rows} rows, Ep {ep}, H {hd}, ragged, 3 steps]: "
               f"max_abs_err {err:.3e}")
+
+
+def port_kernels(fn) -> list:
+    """The port's kernels (namespace cxg) that one call of fn launches,
+    one name per kernel (a template's instantiations each), sorted
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = (e.key.split("(")[0].replace("void ", "") for e in prof.key_averages())
+    return sorted(n.split("<")[0] for n in names if n.startswith("cxg::"))
+
+
+def check_xgate_routes(dev) -> None:
+    """K1's two routes at 77 rows (ragged against the 64-row tiles), da 40,
+    dm 24: under bf16 the wgmma chain at H = 136 (three launches) and the
+    SIMT kernel at H = 132 (H % 8 != 0), under f32 the SIMT kernel at both;
+    each against the plain version (BF16_TOL["xgate"], F32_TOL)."""
+    import torch
+
+    from controllable_xgating_torch.ops.kernels.xgate import (
+        xgate_fits,
+        xgate_fuse_kernel,
+        xgate_fuse_plain,
+    )
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.ops.xgate import init_xgate
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    for h in (136, 132):
+        w = init_xgate(torch.Generator().manual_seed(h), 40, 24, h).to(dev)
+        for bias in (w.ba, w.bm, w.bga, w.bgm, w.bf):
+            bias.data = torch.randn(h, generator=g, device=dev) * 0.1
+        xa, xm = torch.randn(77, 40, generator=g, device=dev), torch.randn(77, 24, generator=g, device=dev)
+        for policy, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL["xgate"])):
+            with precision(policy):
+                got, ref = xgate_fuse_kernel(w, xa, xm), xgate_fuse_plain(w, xa, xm)
+                names = port_kernels(lambda: xgate_fuse_kernel(w, xa, xm))
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            chain = policy == "bfloat16" and xgate_fits(40, 24, h)
+            want = ["cxg::xgate_chain_kernel"] * 3 if chain else ["cxg::xgate_kernel"]
+            if names != want:
+                fail(f"xgate [{policy}, H {h}]: launched {names}, expected {want}")
+            if not torch.isfinite(got).all() or not torch.allclose(got, ref, **tol):
+                fail(f"xgate [{policy}, 77 rows, H {h}]: max |kernel - plain| = {err:.3e} outside {tol}")
+            print(f"kernel xgate [{policy}, 77 rows, da 40, dm 24, H {h}, "
+                  f"{'chain' if chain else 'SIMT'}]: max_abs_err {err:.3e}")
+
+
+def check_topk_epilogues(params, dev) -> None:
+    """Device us per launch of K6 (extraction rounds on the accumulator)
+    and K4 (insertion into sorted lists) at the beam shape for k = 1, 5, 8,
+    bf16, in turns, by kernel (chunk kernel, merge): the chunk kernel's
+    growth with k is each epilogue's selection cost."""
+    import torch
+
+    from controllable_xgating_torch.ops.kernels.topk_extract import logits_topk_extract_kernel
+    from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk, topk_tail_weights
+
+    dec = params.decoder
+    g = torch.Generator(device=dev).manual_seed(23)
+    h = torch.tanh(torch.randn(B * K, dec.hidden_dim, generator=g, device=dev))
+    w_op = topk_tail_weights(dec.w_out)
+    us = {}
+    for k in (1, 5, 8):
+        for name, fn in (("topk_extract", logits_topk_extract_kernel), ("topk_tail", logits_topk),
+                         ("topk_tail", logits_topk), ("topk_extract", logits_topk_extract_kernel)):
+            split = kernel_device_split(lambda: fn(h, dec.w_out, dec.b_out, k, w_op=w_op))
+            us.setdefault((name, k), []).append(
+                {n.split("<")[0].replace("cxg::", ""): round(t, 2) for n, t in split.items()})
+    print("kernel topk_extract vs topk_tail [bfloat16, 1280x512 -> 10000], device us per launch "
+          "by k and kernel, in turns: " + json.dumps({f"{n} k={k}": v for (n, k), v in us.items()}))
 
 
 def check_topk(dev) -> dict:
@@ -863,6 +953,49 @@ def tails_phase(params, dev) -> None:
           f"captions/s (one call each) {json.dumps(rates)}")
 
 
+def beam10_phase(params, store, dev) -> None:
+    """Beam 10 (wider than the lanes tail's MAX_K = 8) over the 256 videos
+    through `make_beam_caption_fn`, kernels on: auto must route to the
+    grouped tail by shape (no topk_tail launch), and under bf16 give the
+    tokens of an explicit grouped tail through the same kernels; under f32
+    its captions must agree with the plain path's grouped tail
+    (fused=False) on >= AGREE_MIN of the videos, as beam-5's do."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.precision import precision
+
+    app, mot = (torch.as_tensor(x, device=dev) for x in store.get_batch(np.arange(B)))
+    mask = torch.as_tensor(store.frame_mask(np.arange(B)), device=dev)
+    run = lambda fused, mode: make_beam_caption_fn(10, MAX_LEN, MAX_LEN, fused=fused,
+                                                   topk_mode=mode)(params, app, mot, mask)[0]
+    with precision("bfloat16"):
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        auto = run(None, "auto")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        grouped = run(None, "grouped")
+    torch.cuda.synchronize()
+    print(f"beam-10 launches {counts}")
+    if counts["topk_tail"] != 0 or not all(counts[n] for n in ("xgate", "pos_lstm", "attn_lstm")):
+        fail(f"beam-10: expected the kernels of the grouped route and no topk_tail: {counts}")
+    if auto.shape != (B, MAX_LEN) or not torch.equal(auto, grouped):
+        fail(f"beam-10 [bfloat16]: auto's tokens differ from the grouped tail's on "
+             f"{int((auto != grouped).any(1).sum())} videos")
+    with precision("float32"):
+        a, b = run(None, "auto"), run(False, "grouped")
+    agree = (a == b).all(1).float().mean().item()
+    print(f"beam-10 [bfloat16, kernels]: auto takes the grouped tail, tokens equal; "
+          f"{B / dt:.1f} captions/s (one call); caption agreement kernels vs plain [float32] "
+          f"{agree:.4f}")
+    if agree < AGREE_MIN:
+        fail(f"beam-10 f32 caption agreement {agree:.4f} < {AGREE_MIN}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -904,7 +1037,9 @@ def main() -> None:
     set_compute_dtype("bfloat16")
     results = check_kernels(params, dev, "bfloat16", BF16_TOL)
     check_greedy_rows(params, dev, results)
+    check_topk_epilogues(params, dev)
     check_pos_ragged(dev)
+    check_xgate_routes(dev)
     check_topk(dev)
 
     # the main path, bf16 policy, kernels on: beam 5, then greedy, each
@@ -959,6 +1094,7 @@ def main() -> None:
     # the quantized decode path and beam's full log-softmax tails
     k7 = int8_phase(params, cfg, store, labels, info, dev, counts)
     tails_phase(params, dev)
+    beam10_phase(params, store, dev)
 
     # the XE-training path: K5 against its plain version at the step's
     # shape, then the train steps

@@ -199,13 +199,8 @@ cudaError_t launch_attn_lstm_simt(const void* h, const float* c, const void* e, 
 
 constexpr int kPreStages = 4;   // 97 KB: 2 blocks an SM
 constexpr int kCellStages = 3;  // 73 KB: 3 blocks an SM, the cell's 320 tiles in one wave
-constexpr int kPreStageBytes = hop::kATileBytes + hop::kBTileBytes;  // A and B tiles: 24 KB
 constexpr int kAttnThreads = 256;  // attn_rows_kernel: one block of 8 warps per row
 constexpr int kAttnFrames = 2;     // frames a warp scores at once (2 beat 1, 4 and 8 on the card)
-
-inline size_t streamed_gemm_smem_bytes(int stages) {
-  return hop::smem_request((size_t)stages * kPreStageBytes);
-}
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -223,30 +218,6 @@ inline bool attn_rows_staged(int t, int a, int g, const void* keys, const void* 
          attn_rows_smem_bytes(t, a, g, true) <= 113 * 1024;
 }
 
-// acc (+)= A[m0 : m0 + 64, :k] @ B[n0 : n0 + 128, :k]^T, both operands
-// streamed through a ring of S stages by TMA (descriptors ma, mb); acc
-// starts from its own values if `accumulate`, else from zero.
-template <int S>
-__device__ __forceinline__ void streamed_tile(float (&acc)[64], const CUtensorMap* ma,
-                                              const CUtensorMap* mb, int m0, int n0, int k,
-                                              bool accumulate) {
-  extern __shared__ __align__(1024) uint8_t gemm_smem_raw[];
-  uint64_t* full;
-  uint8_t* ring = hop::smem_layout(gemm_smem_raw, S * kPreStageBytes, &full);
-  const int nk = (k + hop::kTileK - 1) / hop::kTileK;
-  auto load = [=](int j) {
-    uint8_t* stage = ring + (j % S) * kPreStageBytes;
-    uint64_t* bar = &full[j % S];
-    hop::mbar_expect_tx(bar, kPreStageBytes);
-    hop::tma_load(stage, ma, bar, j * hop::kTileK, m0);
-    hop::tma_load(stage + hop::kATileBytes, mb, bar, j * hop::kTileK, n0);
-  };
-  hop::ring_start<S>(full, 0, nk, load);
-  hop::mma_tile<S>(
-      acc, 0, nk, nk, ring, kPreStageBytes, hop::kATileBytes, full, accumulate,
-      [=](int, int stage) { return ring + stage * kPreStageBytes; }, load);
-}
-
 // pre [rows, n] = x [rows, k] @ w_pre^T, w_pre [n, k] (K-major), f32 out
 __global__ void __launch_bounds__(hop::kThreads)
     pre_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -254,7 +225,7 @@ __global__ void __launch_bounds__(hop::kThreads)
                     int n, int k) {
   const int m0 = blockIdx.y * hop::kTileM, n0 = blockIdx.x * hop::kTileN;
   float acc[64];
-  streamed_tile<kPreStages>(acc, &map_x, &map_w, m0, n0, k, false);
+  hop::streamed_tile<kPreStages>(acc, &map_x, &map_w, m0, n0, k, false);
 #pragma unroll
   for (int i = 0; i < 64; i += 2) {  // columns 2q, 2q + 1 of each 8-column group
     const int r = m0 + hop::acc_row(i), c = n0 + hop::acc_col(i);
@@ -483,7 +454,7 @@ __global__ void __launch_bounds__(hop::kThreads)
       const int r = m0 + hop::acc_row(2 * rs), u = (n0 + 16 * blk) / 4 + q;
       c_old[rs][blk] = r < rows && u < hidden ? c[(size_t)r * hidden + u] : 0.0f;
     }
-  streamed_tile<kCellStages>(acc, &map_g, &map_w, m0, n0, g, true);
+  hop::streamed_tile<kCellStages>(acc, &map_g, &map_w, m0, n0, g, true);
 #pragma unroll
   for (int rs = 0; rs < 2; ++rs) {
     const int r = m0 + hop::acc_row(2 * rs);
@@ -524,8 +495,8 @@ cudaError_t launch_attn_lstm_bf16(const void* x, const void* w_pre, float* pre, 
   if (err == cudaSuccess) err = hop::make_tmap(&map_g, guide, rows, g, gp, hop::kTileM);
   if (err == cudaSuccess) err = hop::make_tmap(&map_wc, w_cell, n_cell, g, gp, hop::kTileN);
   if (err != cudaSuccess) return err;
-  const int smem = (int)streamed_gemm_smem_bytes(kPreStages);
-  const int cell_smem = (int)streamed_gemm_smem_bytes(kCellStages);
+  const int smem = (int)hop::streamed_smem_bytes(kPreStages);
+  const int cell_smem = (int)hop::streamed_smem_bytes(kCellStages);
   const bool staged = attn_rows_staged(t, a, g, keys, encp);
   const int attn_smem = (int)attn_rows_smem_bytes(t, a, g, staged);
   static int pre_set = 0, cell_set = 0, attn_set = 0;
@@ -596,6 +567,6 @@ extern "C" int cxg_attn_lstm_bf16_fwd(const void* x, const void* w_pre, void* pr
 // shared memory the bf16 path needs a block to have (the attention
 // unstaged: it stages the rows only where they fit)
 extern "C" long cxg_attn_bf16_smem_bytes(int t, int a, int g) {
-  return (long)std::max(cxg::streamed_gemm_smem_bytes(cxg::kPreStages),
+  return (long)std::max(cxg::hop::streamed_smem_bytes(cxg::kPreStages),
                         cxg::attn_rows_smem_bytes(t, a, g, false));
 }

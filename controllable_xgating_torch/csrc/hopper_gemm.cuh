@@ -1,6 +1,7 @@
 // The Hopper GEMM mainloop shared by the redesigned kernels under the bf16
-// policy: attn_lstm.cu's pre-activation and cell products, topk_tail.cu's
-// vocab projection and pos_lstm.cu's gates on mma_tile below;
+// policy: attn_lstm.cu's pre-activation and cell products, xgate.cu's
+// GEMM chain and topk_extract.cu's projection on streamed_tile below,
+// topk_tail.cu's vocab projection and pos_lstm.cu's gates on mma_tile;
 // int8_vocab.cu on its own loop over the same ring, with its weight as
 // wgmma's register operand (wgmma_m64n128k16_rs).
 //
@@ -339,6 +340,41 @@ __device__ __forceinline__ void mma_tile(float (&acc)[M], int j0, int nk, int to
   __syncthreads();
   const int last = j0 + nk - 1;
   if (threadIdx.x == 0 && last + S < total) load(last + S);
+}
+
+// Dynamic shared memory of streamed_tile's ring: S stages of W A tiles
+// and one B tile (24 KB a stage for one warpgroup, 32 KB for two).
+inline size_t streamed_smem_bytes(int stages, int wgs = 1) {
+  return smem_request((size_t)stages * (wgs * kATileBytes + kBTileBytes));
+}
+
+// acc (+)= A[m0 + 64 wg : m0 + 64 wg + 64, :k] @ B[n0 : n0 + 128, :k]^T for
+// warpgroup wg of the block's W, both operands streamed through a ring of
+// S stages by TMA (descriptors ma, in boxes of 64 W rows, and mb); the W
+// warpgroups share each B tile, which raises the products per byte a
+// stage brings in from L2 (43 FLOP/B for one, 64 for two). acc starts
+// from its own values if `accumulate`, else from zero.
+template <int S, int W = 1>
+__device__ __forceinline__ void streamed_tile(float (&acc)[64], const CUtensorMap* ma,
+                                              const CUtensorMap* mb, int m0, int n0, int k,
+                                              bool accumulate) {
+  constexpr int kStage = W * kATileBytes + kBTileBytes;
+  extern __shared__ __align__(1024) uint8_t gemm_smem_raw[];
+  uint64_t* full;
+  uint8_t* ring = smem_layout(gemm_smem_raw, S * kStage, &full);
+  const int nk = (k + kTileK - 1) / kTileK;
+  const int wg = threadIdx.x / kThreads;
+  auto load = [=](int j) {
+    uint8_t* stage = ring + (j % S) * kStage;
+    uint64_t* bar = &full[j % S];
+    mbar_expect_tx(bar, kStage);
+    tma_load(stage, ma, bar, j * kTileK, m0);
+    tma_load(stage + W * kATileBytes, mb, bar, j * kTileK, n0);
+  };
+  ring_start<S>(full, 0, nk, load);
+  mma_tile<S>(
+      acc, 0, nk, nk, ring, kStage, W * kATileBytes, full, accumulate,
+      [=](int, int stage) { return ring + stage * kStage + wg * kATileBytes; }, load);
 }
 
 }  // namespace hop

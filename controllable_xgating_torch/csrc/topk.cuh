@@ -1,7 +1,8 @@
 // Shared by the two vocab top-K kernels (topk_tail.cu, topk_extract.cu):
 // the (value desc, index asc) order that lax.top_k's ties follow, a warp
-// arg-max on it, and the merge of per-chunk candidates and (max, sum-exp)
-// partials into each row's top-K and logsumexp.
+// and a quad arg-max on it (a quad of 4 lanes holds one accumulator row
+// of a wgmma tile), and the merge of per-chunk candidates and (max,
+// sum-exp) partials into each row's top-K and logsumexp.
 #pragma once
 
 #include "common.cuh"
@@ -31,6 +32,26 @@ __device__ __forceinline__ void warp_best(float& v, int& i, int& l) {
       l = ol;
     }
   }
+}
+
+// (v, i, l) of the best of the 4 lanes of a quad, on (value desc, index asc)
+__device__ __forceinline__ void quad_best(float& v, int& i, int& l) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
+    const int ol = __shfl_xor_sync(kFull, l, off);
+    if (ranks_before(ov, oi, ol, v, i, l)) {
+      v = ov;
+      i = oi;
+      l = ol;
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
 }
 
 // One warp per row: K rounds of arg-max over the row's nchunks * k

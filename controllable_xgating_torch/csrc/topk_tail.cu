@@ -184,26 +184,6 @@ inline size_t topk_wgmma_smem_bytes(int hd) {
   return hop::smem_request(topk_wgmma_tile_bytes(hd));
 }
 
-// (v, i, l) of the best of the 4 lanes of a quad, on (value desc, index asc)
-__device__ __forceinline__ void quad_best(float& v, int& i, int& l) {
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    const int ol = __shfl_xor_sync(kFull, l, off);
-    if (ranks_before(ov, oi, ol, v, i, l)) {
-      v = ov;
-      i = oi;
-      l = ol;
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
 // bf16 policy, top-K: h [rows, hd] and w_t = w_out^T [v, hd], both
 // K-major, read through TMA descriptors (hd % 8 == 0); chunk_cols % 128
 // == 0. Two warpgroups share h's resident row tile and every w tile of

@@ -22,7 +22,11 @@ block maxima (`row_topk_block`; the port's `topk` prescreens long rows
 itself, so the two run the same code), and `"flat"` takes one top-K over
 the flattened [B, K*V] pool. `"auto"` picks lanes on the kernel path, and
 grouped with `vocab_q` (the weight-only int8 projection, which lanes does
-not take) or off it. Ensembles and diverse beam are not ported yet.
+not take) or off it. Auto and an explicit `"lanes"` take grouped where
+the top-K kernel does not take the shape (`lanes_fits`: a beam wider than
+its `MAX_K`, or a decoder too wide for its shared memory), as the
+reference routes on its own `lanes_fits`. Ensembles and diverse beam are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +46,12 @@ from controllable_xgating_torch.models.decoder import (
     init_decoder_state,
 )
 from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_weights
-from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk, topk, topk_tail_weights
+from controllable_xgating_torch.ops.kernels.topk_tail import (
+    lanes_fits,
+    logits_topk,
+    topk,
+    topk_tail_weights,
+)
 
 NEG_INF = -1e30
 
@@ -91,6 +100,8 @@ def beam_search(
     lanes = topk_mode == "lanes"
     if lanes and vocab_q is not None:
         raise ValueError('topk_mode="lanes" does not support vocab_q')
+    if lanes and not lanes_fits(k, params.w_out.shape[0]):
+        lanes, topk_mode = False, "grouped"
     is_pad = torch.arange(v, device=dev) == PAD
     # a finished row's candidates: the PAD continuation at zero cost
     cont = torch.where(is_pad, 0.0, NEG_INF)

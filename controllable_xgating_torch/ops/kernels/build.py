@@ -101,6 +101,7 @@ def build() -> str:
 
 _SIGNATURES = {
     "cxg_xgate_fwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    "cxg_xgate_chain_fwd": [_P] * 16 + [_I] * 4 + [_P],
     "cxg_pos_lstm_fwd": [_P] * 9 + [_I] * 3 + [_P],
     "cxg_pos_lstm_bf16_plan": [_P] * 5 + [_I] * 3,
     "cxg_pos_lstm_bf16_fwd": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P],

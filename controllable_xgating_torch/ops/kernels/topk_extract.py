@@ -12,8 +12,12 @@ Counterpart of the Pallas kernel of `experiments/pallas_logits_topk.py`
 so its plain version is the beam tail's. The kernel differs in how it
 picks: k rounds of arg-max over each block's vocab chunk, the TPU
 kernel's algorithm, where the beam tail's lanes insert into sorted lists.
-The Pallas kernel's vocab tile shrank with the row count to fit VMEM; here
-the chunk is fixed, and its f32 logits stay in shared memory.
+Under the bf16 policy a chunk is the 128 columns of a 128-row wgmma tile
+and the rounds run on its accumulator registers, on the beam tail's
+K-major operand
+(`topk_tail_weights`: w_out^T, Hd padded with zero columns to a multiple
+of 8); under f32 a chunk is 1024 columns, its f32 logits in shared
+memory, on SIMT products.
 """
 
 from __future__ import annotations
@@ -21,10 +25,16 @@ from __future__ import annotations
 import torch
 
 from controllable_xgating_torch.ops.kernels import build
-from controllable_xgating_torch.ops.kernels.topk_tail import MAX_K, logits_topk_plain
+from controllable_xgating_torch.ops.kernels.topk_tail import (
+    MAX_K,
+    h_operand,
+    logits_topk_plain,
+    topk_tail_weights,
+)
 from controllable_xgating_torch.ops.precision import compute_dtype
 
-CHUNK_COLS = 1024  # vocab columns per block: 128 KB of f32 logits for 32 rows
+CHUNK_COLS = 1024  # f32: vocab columns per block, 128 KB of f32 logits for 32 rows
+CHUNK_COLS_BF16 = 128  # bf16: one wgmma tile's columns a block
 
 
 def logits_topk_extract_plain(h, w_out, b_out, k: int):
@@ -36,6 +46,7 @@ def logits_topk_extract_kernel(
     w_out: torch.Tensor,  # [Hd, V]
     b_out: torch.Tensor,  # [V]
     k: int,
+    w_op: torch.Tensor | None = None,  # topk_tail_weights(w_out), else made here
 ):
     """(top-k raw logits [R, k] f32, vocab ids [R, k] int64, lse [R] f32):
     the kernels (chunks, then the merge) for CUDA tensors, the plain
@@ -45,17 +56,19 @@ def logits_topk_extract_kernel(
     if not 1 <= k <= MAX_K:
         raise ValueError(f"topk_extract kernel takes 1 <= k <= {MAX_K}, got {k}")
     lib = build.library()
-    smem, limit = lib.cxg_topk_extract_smem_bytes(CHUNK_COLS), build.smem_limit(h.device)
-    if smem > limit:
-        raise ValueError(f"topk_extract kernel: {smem} B of shared memory per block, the card "
-                         f"allows {limit}")
     cdt, f32, dev = compute_dtype(), torch.float32, h.device
-    r, hd = h.shape
+    bf16 = cdt == torch.bfloat16
+    chunk_cols = CHUNK_COLS_BF16 if bf16 else CHUNK_COLS
+    if not bf16 and lib.cxg_topk_extract_smem_bytes(chunk_cols) > build.smem_limit(dev):
+        raise ValueError("topk_extract kernel: the f32 chunk needs more shared memory than a "
+                         "block has")
+    r = h.shape[0]
     v = w_out.shape[1]
-    hc = h.to(cdt).contiguous()
-    w = w_out.to(device=dev, dtype=cdt).contiguous()
+    hc = h_operand(h)
+    hd = hc.shape[1]
+    w = (topk_tail_weights(w_out) if w_op is None else w_op).to(dev)
     b = b_out.to(device=dev, dtype=f32).contiguous()
-    nchunks = -(-v // CHUNK_COLS)
+    nchunks = -(-v // chunk_cols)
     cand_v = torch.empty((r, nchunks, k), dtype=f32, device=dev)
     cand_i = torch.empty((r, nchunks, k), dtype=torch.int32, device=dev)
     part_m = torch.empty((r, nchunks), dtype=f32, device=dev)
@@ -67,7 +80,7 @@ def logits_topk_extract_kernel(
         return vals, idx.long(), lse
     ptrs = [
         build.check(hc, "h", (r, hd), cdt, dev),
-        build.check(w, "w_out", (hd, v), cdt, dev),
+        build.check(w, "w_out", (v, hd) if bf16 else (hd, v), cdt, dev),
         build.check(b, "b_out", (v,), f32, dev),
         build.check(cand_v, "cand_v", (r, nchunks, k), f32, dev),
         build.check(cand_i, "cand_i", (r, nchunks, k), torch.int32, dev),
@@ -78,7 +91,7 @@ def logits_topk_extract_kernel(
         build.check(lse, "lse", (r,), f32, dev),
     ]
     rc = lib.cxg_topk_extract_fwd(
-        build.dtype_code(hc), *ptrs, r, hd, v, k, CHUNK_COLS, build.stream_ptr(dev)
+        build.dtype_code(hc), *ptrs, r, hd, v, k, chunk_cols, build.stream_ptr(dev)
     )
     build.raise_on_error(rc, "topk_extract")
     logits_topk_extract_kernel.launches += 1

@@ -12,20 +12,33 @@ The true log-probabilities of the winners are vals - lse[:, None]. Ties
 go to the lower vocab index, as with `lax.top_k`; the kernel keeps that
 order across its vocab chunks too. Under the bf16 policy the kernel reads
 w_out K-major ([V, Hd], `topk_tail_weights`, made once per caption call)
-into wgmma; under f32 it reads w_out as it is, on SIMT products.
+into wgmma, with Hd padded by zero columns to a multiple of 8 (16-byte TMA
+rows; a zero column adds nothing to a logit); under f32 it reads w_out as
+it is, on SIMT products.
+
+`lanes_fits` is the shape predicate that beam consults before it picks
+this tail, as the reference's `lanes_fits` is.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from controllable_xgating_torch.data.vocab import BOS, PAD, UNK
 from controllable_xgating_torch.ops.kernels import build
 from controllable_xgating_torch.ops.precision import compute_dtype, mm
+from controllable_xgating_torch.utils.logging import get_logger
 
 NEG = -1e30
 CHUNK_COLS = 512  # vocab columns per block of the first kernel
-MAX_K = 8
+MAX_K = 8  # csrc/topk_tail.cu instantiates k = 1 .. 8
+# the bf16 chunk kernel's shared memory (topk_wgmma_smem_bytes in
+# csrc/topk_tail.cu): h's resident row tile of 64 x 64 bf16 per 64-deep K
+# step, a 3-stage ring of [128, 64] bf16 w tiles, 1 KB of alignment
+_TILE_K, _A_TILE, _RING = 64, 64 * 64 * 2, 3 * 128 * 64 * 2
+SMEM_OPTIN = 232448  # dynamic shared memory a Hopper block may opt in to
+_lanes_warned: set = set()
 
 
 _ID_MASK = 0xFFFFFFFF
@@ -85,13 +98,49 @@ def logits_topk_plain(h, w_out, b_out, k: int, block_unk: bool = False):
     return vals, idx, torch.logsumexp(logits, dim=-1)
 
 
+def padded_hd(hd: int) -> int:
+    """Hd as the bf16 kernel reads it: rounded up to a multiple of 8."""
+    return -(-hd // 8) * 8
+
+
+def lanes_fits(k: int, hd: int) -> bool:
+    """Whether the kernel takes a beam of width k over decoder width hd
+    under the current policy: 1 <= k <= MAX_K, and under bf16 the chunk
+    kernel's shared memory within a block's. Decided from the shape before
+    any launch; warns once per shape that it does not take, where beam
+    routes to the grouped tail (the reference's `lanes_fits` convention)."""
+    nk = -(-padded_hd(hd) // _TILE_K)
+    smem = nk * _A_TILE + _RING + 1024
+    fits = 1 <= k <= MAX_K and (compute_dtype() != torch.bfloat16 or smem <= SMEM_OPTIN)
+    if not fits and (k, hd) not in _lanes_warned:
+        _lanes_warned.add((k, hd))
+        get_logger("cxg.ops").warning(
+            'topk_mode="lanes": the tail kernel takes 1 <= k <= %d and Hd <= %d under bf16, '
+            "got k=%d, Hd=%d; beam takes the grouped tail",
+            MAX_K, (SMEM_OPTIN - _RING - 1024) // _A_TILE * _TILE_K, k, hd,
+        )
+    return fits
+
+
+def h_operand(h: torch.Tensor) -> torch.Tensor:
+    """The kernel's h operand under the current policy: in the compute
+    dtype, contiguous, and under bf16 with zero columns to padded_hd."""
+    hc = h.to(compute_dtype())
+    if hc.dtype == torch.bfloat16:
+        hc = F.pad(hc, (0, padded_hd(h.shape[1]) - h.shape[1]))
+    return hc.contiguous()
+
+
 def topk_tail_weights(w_out: torch.Tensor) -> torch.Tensor:
     """The kernel's w_out operand under the current policy, to be made
-    once per caption call: w_out^T [V, Hd] (K-major) in bf16, w_out [Hd, V]
-    in f32."""
+    once per caption call: w_out^T [V, padded_hd(Hd)] (K-major, zero
+    columns past Hd) in bf16, w_out [Hd, V] in f32."""
     cdt = compute_dtype()
     w = w_out.to(cdt)
-    return (w.t() if cdt == torch.bfloat16 else w).contiguous()
+    if cdt != torch.bfloat16:
+        return w.contiguous()
+    hd = w.shape[0]
+    return F.pad(w.t(), (0, padded_hd(hd) - hd)).contiguous()
 
 
 def logits_topk(
@@ -108,12 +157,11 @@ def logits_topk(
     if not 1 <= k <= MAX_K:
         raise ValueError(f"topk_tail kernel takes 1 <= k <= {MAX_K}, got {k}")
     cdt, f32, dev = compute_dtype(), torch.float32, h.device
-    r, hd = h.shape
+    r = h.shape[0]
     v = w_out.shape[1]
     bf16 = cdt == torch.bfloat16
-    if bf16 and hd % 8:
-        raise ValueError(f"topk_tail kernel (bf16) takes Hd % 8 == 0 (16-byte rows), got {hd}")
-    hc = h.to(cdt).contiguous()
+    hc = h_operand(h)
+    hd = hc.shape[1]
     w = (topk_tail_weights(w_out) if w_op is None else w_op).to(dev)
     b = b_out.to(device=dev, dtype=f32).contiguous()
     nchunks = -(-v // CHUNK_COLS)

@@ -66,10 +66,11 @@ def device_time_ms(key_averages) -> float:
     ) / 1e3
 
 
-def kernel_device_us(fn, calls: int = 10) -> float:
-    """Device microseconds per call of `fn` spent in the port's own CUDA
+def kernel_device_split(fn, calls: int = 10) -> dict:
+    """Device microseconds per call of `fn` in each of the port's own CUDA
     kernels (namespace `cxg`, so not the casts or copies a wrapper makes),
-    over `calls` calls under `torch.profiler` after one warm-up."""
+    by kernel name, over `calls` calls under `torch.profiler` after one
+    warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,9 +80,15 @@ def kernel_device_us(fn, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "cxg::" in e.key)
-    return total / calls
+    return {e.key.split("(")[0].replace("void ", ""): e.self_device_time_total / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "cxg::" in e.key}
+
+
+def kernel_device_us(fn, calls: int = 10) -> float:
+    """Device microseconds per call of `fn` in the port's own CUDA kernels,
+    all of them together (`kernel_device_split`)."""
+    return sum(kernel_device_split(fn, calls).values())
 
 
 def caption_calls(cfg, dev):

@@ -1,6 +1,6 @@
-"""Beam's `flat` and `block` candidate tails, `row_topk_block`, and the
-logits top-k by iterative extraction (K6), the port vs the JAX package on
-the CPU in f32.
+"""Beam's `flat` and `block` candidate tails, `row_topk_block`, beam's
+route past the lanes tail's k limit, and the logits top-k by iterative
+extraction (K6), the port vs the JAX package on the CPU in f32.
 
 Tokens must equal the JAX package's; scores, values and logsumexps are
 held at rtol 1e-5. Inputs are numpy draws handed to both packages.
@@ -100,6 +100,45 @@ def test_beam_tails_agree(setup):
         assert torch.equal(other[0], outs[0][0]) and torch.equal(other[2], outs[0][2])
         torch.testing.assert_close(other[1], outs[0][1], rtol=1e-6, atol=0.0)
     assert kernels.launch_counts() == {n: 0 for n in kernels.WRAPPERS}
+
+
+_JAX_GROUPED: dict = {}
+
+
+@pytest.mark.parametrize("mode", ["auto", "lanes"])
+@pytest.mark.parametrize("beam_size", [9, 10, 16])
+def test_beam_routes_past_the_lanes_limit(setup, monkeypatch, beam_size, mode):
+    """A beam wider than the top-K kernel's MAX_K takes the grouped tail, on
+    auto and on an explicit "lanes", decided from the shape: with a
+    stand-in for the kernel wrapper that refuses k > MAX_K as the card
+    does, `beam_search(fused=True)` never calls it and gives the grouped
+    tail's tokens and scores, and the JAX package's grouped beam's."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import MAX_K
+
+    jp, tp, j_in, t_in = setup
+    calls, real = [], t_beam.logits_topk
+
+    def card_like(h, w_out, b_out, k, *args, **kwargs):
+        calls.append(k)
+        if k > MAX_K:
+            raise ValueError(f"topk_tail kernel takes 1 <= k <= {MAX_K}, got {k}")
+        return real(h, w_out, b_out, k, *args, **kwargs)
+
+    monkeypatch.setattr(t_beam, "logits_topk", card_like)
+    run = lambda m: t_beam.make_beam_caption_fn(beam_size, MAX_POS, MAX_LEN, fused=True,
+                                                topk_mode=m, return_all=True)(tp, *t_in)
+    got, grouped = run(mode), run("grouped")
+    assert calls == []
+    for a, b in zip(got, grouped):
+        assert torch.equal(a, b)
+    key = (tp.decoder.w_out.shape[1], beam_size)
+    if key not in _JAX_GROUPED:
+        _JAX_GROUPED[key] = j_beam.make_beam_caption_fn(
+            beam_size, MAX_POS, MAX_LEN, topk_mode="grouped", return_all=True)(jp, *j_in)
+    jout = _JAX_GROUPED[key]
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jout[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jout[2]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(jout[1]), rtol=1e-5, atol=1e-6)
 
 
 def _jax_reference(h, w, b, k):

@@ -162,17 +162,17 @@ def test_attn_lstm_kernel_redesign(dev, policy, r, t):
     assert kernels.launch_counts()["attn_lstm"] == 1
 
 
-def planted_tail(dev, r, v, seed=2):
+def planted_tail(dev, r, v, seed=2, hd=512):
     """(h, w, b, tied rows): logits N(0, 1)-ish, and on every other row
-    four equal winners at columns 127 | 128 (an N-tile edge) and
-    CHUNK_COLS - 1 | CHUNK_COLS (a vocab chunk edge), where they exist.
-    Their w columns are zero and their bias equal, so the logits tie
-    exactly in any summation order."""
+    four equal winners at columns 127 | 128 (an N-tile edge, and K6's
+    chunk edge under bf16) and CHUNK_COLS - 1 | CHUNK_COLS (K4's vocab
+    chunk edge), where they exist. Their w columns are zero and their bias
+    equal, so the logits tie exactly in any summation order."""
     from controllable_xgating_torch.ops.kernels.topk_tail import CHUNK_COLS
 
     gd = torch.Generator(device=dev).manual_seed(seed)
-    h = torch.tanh(torch.randn(r, 512, generator=gd, device=dev))
-    w = torch.randn(512, v, generator=gd, device=dev) * 512 ** -0.5
+    h = torch.tanh(torch.randn(r, hd, generator=gd, device=dev))
+    w = torch.randn(hd, v, generator=gd, device=dev) * hd ** -0.5
     b = torch.randn(v, generator=gd, device=dev) * 0.1
     cols = [c for c in (127, 128, CHUNK_COLS - 1, CHUNK_COLS) if c < v]
     tied = torch.arange(r, device=dev) % 2 == 0
@@ -212,8 +212,9 @@ def test_topk_tail_kernel_redesign(dev, policy, r, v, k, block_unk):
 
 def test_redesigned_kernels_run_on_wgmma(dev):
     """The SASS of the built library: HGMMA in K3's pre-activation GEMM,
-    K4's chunk kernel, K7 and K2's bf16 kernel, and no TF32 product
-    anywhere (the f32 policy's kernels stay full f32)."""
+    K4's chunk kernel, K7, K2's bf16 kernel, K1's chain and K6's bf16
+    kernel, and no TF32 product anywhere (the f32 policy's kernels stay
+    full f32)."""
     import shutil
     import subprocess
 
@@ -227,7 +228,7 @@ def test_redesigned_kernels_run_on_wgmma(dev):
         name, _, body = part.partition("\n")
         funcs[name.strip()] = body
     for kernel in ("pre_gemm_kernel", "topk_chunk_wgmma_kernel", "int8_vocab_kernel",
-                   "pos_lstm_wgmma_kernel"):
+                   "pos_lstm_wgmma_kernel", "xgate_chain_kernel", "topk_extract_wgmma_kernel"):
         bodies = [body for name, body in funcs.items() if kernel in name]
         assert bodies and all("HGMMA" in body for body in bodies), kernel
     assert "TF32" not in sass
@@ -291,6 +292,132 @@ def test_topk_extract_kernel_breaks_ties_by_lower_index(dev):
     assert idx.tolist() == [[2, 3, 4, 5, 6]] * 2
 
 
+# the bounds chip_smoke.py holds K1 and K6 to
+K1_TOL = {"float32": F32_TOL, "bfloat16": dict(rtol=0.0, atol=2.0 ** -8)}
+
+
+def device_kernels(fn) -> set:
+    """Names of the port's kernels (namespace cxg) that one call of fn
+    launched, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "cxg::" in e.key}
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,da,dm,h", [(37, 40, 24, 136), (6656, 1536, 1024, 512),
+                                          (37, 40, 24, 132), (70, 42, 24, 136)])
+def test_xgate_kernel_redesign(dev, policy, rows, da, dm, h):
+    """K1 against its plain version: under bf16 the wgmma chain (three
+    launches) where xgate_fits, the SIMT kernel at H % 8 != 0 or da % 8 !=
+    0; under f32 always the SIMT kernel; operands from xgate_weights made
+    once, as the encoder's call does."""
+    from controllable_xgating_torch.ops.kernels.xgate import (
+        xgate_fits,
+        xgate_fuse_kernel,
+        xgate_fuse_plain,
+        xgate_weights,
+    )
+    from controllable_xgating_torch.ops.xgate import init_xgate
+
+    g, gd = gen(dev)
+    w = init_xgate(g, da, dm, h).to(dev)
+    for b in (w.ba, w.bm, w.bga, w.bgm, w.bf):
+        b.data = torch.randn(h, generator=gd, device=dev) * 0.1
+    xa = torch.randn(rows, da, generator=gd, device=dev)
+    xm = torch.randn(rows, dm, generator=gd, device=dev)
+    with precision(policy):
+        ops = xgate_weights(w)
+        out = xgate_fuse_kernel(w, xa, xm, ops)
+        close(out, xgate_fuse_plain(w, xa, xm), K1_TOL[policy])
+        names = device_kernels(lambda: xgate_fuse_kernel(w, xa, xm, ops))
+    chain = policy == "bfloat16" and xgate_fits(da, dm, h)
+    assert out.shape == (rows, h) and out.dtype == torch.float32
+    assert sum("xgate_chain_kernel" in n for n in names) == (3 if chain else 0), names
+    assert any("xgate_kernel" in n for n in names) != chain, names
+    assert kernels.launch_counts()["xgate"] == 2
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("r,hd,v", [(37, 40, 257), (1280, 512, 10000), (65, 42, 1000)])
+def test_topk_extract_kernel_redesign(dev, policy, r, hd, v, k):
+    """K6 against its plain version on the beam tail's operand made once:
+    values and lse within the bounds, id sets equal on rows clear of ties,
+    and on the rows with planted ties across a 128-column chunk edge the
+    ids in the plain order; Hd = 42 takes the zero-padded operand."""
+    from controllable_xgating_torch.ops.kernels.topk_extract import (
+        logits_topk_extract_kernel,
+        logits_topk_extract_plain,
+    )
+    from controllable_xgating_torch.ops.kernels.topk_tail import topk_tail_weights
+
+    h, w, b, tied = planted_tail(dev, r, v, hd=hd)
+    tol = K4_TOL[policy]
+    with precision(policy):
+        vals, idx, lse = logits_topk_extract_kernel(h, w, b, k, topk_tail_weights(w))
+        rv, ri, rl = logits_topk_extract_plain(h, w, b, k + 1)
+    close(vals, rv[:, :k], tol)
+    close(lse, rl, tol)
+    clear = rv[:, k - 1] - rv[:, k] > tol["atol"] + tol["rtol"] * rv[:, k - 1].abs()
+    same = (idx.sort(1).values == ri[:, :k].sort(1).values).all(1)
+    assert bool(same[clear].all())
+    assert torch.equal(idx[tied], ri[tied, :k])
+    assert kernels.launch_counts()["topk_extract"] == 1
+
+
+@pytest.mark.parametrize("hd", [6, 42])
+def test_topk_tail_kernel_pads_hd(dev, hd):
+    """K4 under bf16 at Hd % 8 != 0: h and w_out^T go with zero columns to
+    a multiple of 8, made by the wrapper or once by topk_tail_weights."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import (
+        logits_topk,
+        logits_topk_plain,
+        topk_tail_weights,
+    )
+
+    h, w, b, tied = planted_tail(dev, 77, 1000, hd=hd)
+    tol = K4_TOL["bfloat16"]
+    with precision("bfloat16"):
+        outs = [logits_topk(h, w, b, 5), logits_topk(h, w, b, 5, False, topk_tail_weights(w))]
+        rv, ri, rl = logits_topk_plain(h, w, b, 6)
+    for vals, idx, lse in outs:
+        close(vals, rv[:, :5], tol)
+        close(lse, rl, tol)
+        assert torch.equal(idx[tied], ri[tied, :5])
+    assert kernels.launch_counts()["topk_tail"] == 2
+
+
+def test_beam_wider_than_the_lanes_limit_takes_grouped(dev):
+    """beam_search(beam_size=10, fused=True) on the card: the lanes tail is
+    never launched, and the tokens and scores equal the grouped tail's
+    through the same kernels."""
+    from controllable_xgating_torch.infer.beam import beam_search
+    from controllable_xgating_torch.models.captioner import encode_for_inference, init_captioner
+    from controllable_xgating_torch.utils.config import Config
+
+    cfg = Config().replace_flat({
+        "model.app_dim": 40, "model.motion_dim": 24, "model.hidden_dim": 64,
+        "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
+        "model.vocab_size": 500, "model.pos_vocab_size": 20, "model.num_frames": 6,
+    })
+    params = init_captioner(cfg, seed=3, device=dev)
+    gd = torch.Generator(device=dev).manual_seed(4)
+    app = torch.randn(8, 6, 40, generator=gd, device=dev)
+    mot = torch.randn(8, 6, 24, generator=gd, device=dev)
+    with precision("bfloat16"), torch.inference_mode():
+        ctx, summary, _ = encode_for_inference(params, app, mot, max_pos_len=8, fused=True)
+        got = beam_search(params.decoder, ctx, summary, 10, 10, fused=True, return_all=True)
+        counts = kernels.launch_counts()
+        want = beam_search(params.decoder, ctx, summary, 10, 10, fused=True, topk_mode="grouped",
+                           return_all=True)
+    assert counts["topk_tail"] == 0 and counts["attn_lstm"] == 10
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("m,k,n", [(24, 64, 1300), (256, 512, 10000), (1280, 512, 10000),
                                    (77, 96, 130)])
 def test_int8_vocab_kernel(dev, m, k, n):
@@ -324,8 +451,8 @@ def test_wrappers_raise_on_shapes_they_do_not_take(dev):
     h = torch.randn(4, 8, device=dev)
     with pytest.raises(ValueError, match="k <="):
         logits_topk(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
-    with precision("bfloat16"), pytest.raises(ValueError, match="Hd % 8"):  # 16-byte TMA rows
-        logits_topk(h[:, :6], torch.randn(6, 100, device=dev), torch.zeros(100, device=dev), 5)
+    with precision("bfloat16"), pytest.raises(ValueError, match="k <="):
+        logits_topk(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 10)
     with pytest.raises(ValueError, match="k <="):
         logits_topk_extract_kernel(h, torch.randn(8, 100, device=dev), torch.zeros(100, device=dev), 9)
     q = quantize_vocab_proj(torch.randn(6, 100, device=dev), torch.zeros(100, device=dev))

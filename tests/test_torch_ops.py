@@ -173,6 +173,95 @@ def test_xgate_kernel_plain_matches_pallas(policy, tol):
     close(out, ref, **tol)
 
 
+# f32: the chain sums Wf's two halves in one product over K = 2H, another
+# order than the plain version's two (up to ~1e-6 at H = 136)
+@pytest.mark.parametrize("policy,tol", [("float32", dict(rtol=1e-5, atol=1e-5)),
+                                        ("bfloat16", dict(rtol=0.0, atol=2.0 ** -8))])
+def test_xgate_chain_operands_rebuild_the_plain_fusion(policy, tol):
+    """The bf16 chain of csrc/xgate.cu written out in torch on the K-major
+    operands of `xgate_weights`, at a width the chain takes (rows 37, da
+    40, dm 24, H 136): E = [ea | em], Eb = [em | ea] rounded, P = [ea * ga |
+    em * gm] rounded, then one product over K = 2H. It equals the plain
+    version (the bf16 bound: one ulp of the rounded tanh output) and the
+    Pallas kernel in interpret mode (that test's bounds)."""
+    from controllable_xgating_tpu.ops.pallas.xgate import xgate_fuse_pallas
+    from controllable_xgating_torch.ops.kernels.xgate import (
+        xgate_fits,
+        xgate_fuse_plain,
+        xgate_weights,
+    )
+
+    h = 136
+    jw, tw = xgate_pair(30, 40, 24, h)
+    xa, xm = arrays(31, (37, 40), (37, 24))
+    assert xgate_fits(40, 24, h) and not xgate_fits(40, 24, 132) and not xgate_fits(42, 24, h)
+    with j_prec.precision(policy), t_prec.precision(policy):
+        cdt = t_prec.compute_dtype()
+        ops = xgate_weights(tw)
+        kmajor = lambda a, w_t: a.to(cdt).float() @ w_t.float().t()  # w_t [N, K]
+        e = torch.cat([kmajor(T(xa), ops.wa_t) + ops.ba, kmajor(T(xm), ops.wm_t) + ops.bm], 1)
+        eb = torch.cat([e[:, h:], e[:, :h]], 1).to(cdt)
+        g = torch.sigmoid(torch.cat([kmajor(eb[:, :h], ops.uga_t) + ops.bga,
+                                     kmajor(eb[:, h:], ops.ugm_t) + ops.bgm], 1))
+        p = (e * g).to(cdt)
+        out = torch.tanh(kmajor(p, ops.wf_t) + ops.bf).to(cdt).float()
+        ref = xgate_fuse_plain(tw, T(xa), T(xm))
+        pallas = xgate_fuse_pallas(jw, jnp.asarray(xa), jnp.asarray(xm), interpret=True)
+    for got, src in zip(ops[:5], (tw.wa, tw.wm, tw.uga, tw.ugm, tw.wf)):
+        assert got.dtype == cdt and got.is_contiguous() and torch.equal(got, src.to(cdt).t())
+    for got, src in zip(ops[5:], (tw.ba, tw.bm, tw.bga, tw.bgm, tw.bf)):
+        assert got.dtype == torch.float32 and torch.equal(got, src.to(cdt).float())
+    close(out, ref.float().numpy(), **tol)
+    close(out, np.asarray(pallas, np.float32),
+          **(tol if policy == "float32" else dict(rtol=2e-2, atol=2e-2)))
+
+
+@pytest.mark.parametrize("k,hd,policy,fits", [
+    (1, 512, "bfloat16", True), (8, 512, "bfloat16", True), (9, 512, "float32", False),
+    (16, 512, "bfloat16", False), (0, 512, "float32", False), (5, 1408, "bfloat16", True),
+    (5, 1416, "bfloat16", False), (5, 4096, "float32", True), (5, 6, "bfloat16", True),
+])
+def test_lanes_fits_is_the_tail_kernels_shape_predicate(k, hd, policy, fits):
+    """1 <= k <= MAX_K (csrc/topk_tail.cu instantiates 1..8), and under
+    bf16 the chunk kernel's shared memory (h's row tile, 8 KB a 64-deep K
+    step, and a 48 KB ring) within a block's 227 KB: Hd <= 1408."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import lanes_fits
+
+    with t_prec.precision(policy):
+        assert lanes_fits(k, hd) is fits
+
+
+@pytest.mark.parametrize("hd", [6, 42])
+def test_tail_operands_pad_hd_with_zero_columns(hd):
+    """Under bf16 the top-K kernels' h and K-major w_out operands carry Hd
+    padded with zero columns to a multiple of 8 (16-byte TMA rows), which
+    changes no logit: the plain tail on the padded operands equals the
+    unpadded one. Under f32 w_out is taken as it is."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import (
+        h_operand,
+        logits_topk_plain,
+        padded_hd,
+        topk_tail_weights,
+    )
+
+    h, w, b = map(T, arrays(40 + hd, (9, hd), (hd, 300), (300,)))
+    hp = padded_hd(hd)
+    with t_prec.precision("bfloat16"):
+        w_op, h_op = topk_tail_weights(w), h_operand(h)
+        got = logits_topk_plain(h_op, w_op.t(), b, 5)
+        want = logits_topk_plain(h, w, b, 5)
+    assert hp % 8 == 0 and hp - hd < 8
+    assert w_op.shape == (300, hp) and h_op.shape == (9, hp) and w_op.is_contiguous()
+    assert w_op.dtype == h_op.dtype == torch.bfloat16
+    assert torch.equal(w_op[:, :hd], w.bfloat16().t()) and torch.equal(h_op[:, :hd], h.bfloat16())
+    assert not w_op[:, hd:].any() and not h_op[:, hd:].any()
+    assert torch.equal(got[1], want[1])
+    for a, e in ((got[0], want[0]), (got[2], want[2])):
+        close(a, e.numpy(), rtol=1e-6, atol=1e-6)
+    with t_prec.precision("float32"):
+        assert torch.equal(topk_tail_weights(w), w)
+
+
 def _pos_and_decoder(seed):
     from controllable_xgating_tpu.models.captioner import init_captioner
     from controllable_xgating_tpu.utils.config import Config
