@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's captioning, quantized-decoding and XE-training
-paths once on one NVIDIA GPU.
+paths and its three command-line entry points once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -39,7 +39,8 @@ Phases, each fatal on failure:
   6. the quantized decode path (`vocab_q`): the int8 vocab projection
      kernel (K7), on its K-major operand made once, against its plain
      version at the greedy [256, 512] and beam [1280, 512] shapes -> 10000
-     and at a ragged [77, 96] -> 1301 (rtol 1e-4, atol 1e-5), timed beside
+     and at ragged [77, 96] and [77, 90] -> 1301 (rtol 1e-4, atol 1e-5;
+     K 90 takes zero columns to a multiple of 8), timed beside
      the bf16 projection it stands in for; greedy and beam-5 (grouped
      tail) with `vocab_q` over the 256 videos through `evaluate_split` and
      the entry point of `tools/quant_ab.py`, bf16 policy, where K7 must
@@ -66,6 +67,18 @@ Phases, each fatal on failure:
      Adam first moments within a relative norm of 1e-5, parameters within
      atol 1e-5); ten steps on one batch at dropout 0,
      whose loss must fall;
+  9. the three entry points users run, through `main(argv)` on the card
+     (bf16 policy, kernels on), on a corpus directory written with the
+     port's writers (info.json, labels.npz, features/; 128 train, 64 val
+     and 256 test videos at MSR-VTT width, half padded in time), each run
+     with its own launch counts: `cli.train` (joint, one epoch, then val
+     eval: K5 and K1-K3), `cli.eval --beam_size 5` (K1-K4; the captions of
+     `evaluate_split` with `make_beam_caption_fn(5, ...)` on the same
+     checkpoint, captions/s of both in turns), `cli.eval --nbest 5`,
+     `cli.caption` on 8 videos greedy (K1-K3), with `--pos_tags` (no K2),
+     `--sample 3 --seed 0` twice (equal), `--nbest 10` (no topk_tail), and
+     once as `python3 -m controllable_xgating_torch.cli.caption`; each CLI
+     must leave the process's compute policy as it found it;
 then print every kernel's device microseconds per launch beside its
 bound, one JSON line of kernel results (eight kernels, each with its
 launches on its path, bound and times) and, last, one JSON line
@@ -364,9 +377,11 @@ def check_int8(params, dev) -> dict:
     """K7 against its plain version at the greedy [256, 512] and beam
     [1280, 512] shapes -> 10000, on the projection quantized from the
     decoder's and its K-major operand made once (`with_kernel_operand`,
-    as the decode loops do), and at a ragged shape (77 rows, K 96, n 1301:
-    no multiple of the 128-row tile, the 64-deep K step, the 128-column
-    tile or 4, so the output rows lie off 16-byte alignment): both multiply the same bf16 operands, so F32_TOL. Times both,
+    as the decode loops do), and at two ragged shapes (77 rows, n 1301, K
+    96 and 90: no multiple of the 128-row tile, the 64-deep K step, the
+    128-column tile or 4, so the output rows lie off 16-byte alignment; K
+    90 no multiple of 8 either, so x takes zero columns): both multiply
+    the same bf16 operands, so F32_TOL. Times both,
     the kernel's device time per launch and the bf16 projection
     `mm(h, w_out) + b` (bf16 policy) that it stands in for. Returns {rows:
     (max_abs_err, ms, plain_ms, bf16_ms)}."""
@@ -381,11 +396,12 @@ def check_int8(params, dev) -> dict:
 
     dec = params.decoder
     g = torch.Generator(device=dev).manual_seed(13)
-    ragged = quantize_vocab_proj(torch.randn(96, 1301, generator=g, device=dev) * 0.1,
-                                 torch.randn(1301, generator=g, device=dev) * 0.1)
+    ragged = [with_kernel_operand(quantize_vocab_proj(
+        torch.randn(k, 1301, generator=g, device=dev) * 0.1,
+        torch.randn(1301, generator=g, device=dev) * 0.1)) for k in (96, 90)]
     q = with_kernel_operand(quantize_vocab_proj(dec.w_out, dec.b_out))
     out = {}
-    for rows, qq in ((B, q), (B * K, q), (77, with_kernel_operand(ragged))):
+    for rows, qq in ((B, q), (B * K, q), (77, ragged[0]), (77, ragged[1])):
         k_dim = qq.wq.shape[0]
         h = torch.tanh(torch.randn(rows, k_dim, generator=g, device=dev))
         kern = lambda: int8_vocab_proj(h, qq.wq, qq.scale, qq.bias, qq.n, qq.wq_t)
@@ -634,15 +650,14 @@ def xent_bounds(n: int, v: int) -> dict:
     }
 
 
-def make_train_corpus(cfg, seed: int):
-    """TRAIN_VIDEOS seeded videos with `seqs_per_video` captions and POS
-    tag sequences each: BOS, 5-25 random ids, EOS, PAD to MAX_LEN."""
+def draw_videos(rng, n: int, s: int, da: int, dm: int):
+    """n seeded videos (half padded in time) with s captions and POS tag
+    sequences each: BOS, 5-25 random ids, EOS, PAD to MAX_LEN. Returns
+    (app, motion, frame counts, caps, pos, ncaps)."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
-    n, s = TRAIN_VIDEOS, cfg.data.seqs_per_video
-    app = rng.normal(size=(n, T, cfg.model.app_dim)).astype(np.float32)
-    mot = rng.normal(size=(n, T, cfg.model.motion_dim)).astype(np.float32)
+    app = rng.normal(size=(n, T, da)).astype(np.float32)
+    mot = rng.normal(size=(n, T, dm)).astype(np.float32)
     counts = np.where(rng.random(n) < 0.5, T, rng.integers(T // 2, T, n))
     lengths = rng.integers(6, MAX_LEN - 1, (n, s))
     col = np.arange(MAX_LEN)[None, None, :]
@@ -653,7 +668,18 @@ def make_train_corpus(cfg, seed: int):
         arr[..., 0] = 1  # BOS
         np.put_along_axis(arr, words, 2, axis=-1)  # EOS after the words
     ncaps = rng.integers(s // 2, s + 1, n)
-    return NumpyStore(app, mot, counts), caps.astype(np.int32), pos.astype(np.int32), ncaps
+    return app, mot, counts, caps.astype(np.int32), pos.astype(np.int32), ncaps
+
+
+def make_train_corpus(cfg, seed: int):
+    """TRAIN_VIDEOS seeded videos (`draw_videos`), `seqs_per_video`
+    captions each, in a NumpyStore."""
+    import numpy as np
+
+    app, mot, counts, caps, pos, ncaps = draw_videos(
+        np.random.default_rng(seed), TRAIN_VIDEOS, cfg.data.seqs_per_video, cfg.model.app_dim,
+        cfg.model.motion_dim)
+    return NumpyStore(app, mot, counts), caps, pos, ncaps
 
 
 def check_xent(dev, n: int, v: int, smoothing: float = 0.1) -> dict:
@@ -830,6 +856,241 @@ def train_phase(cfg, dev) -> dict:
     if not losses[-1] < losses[0]:
         fail("xe-train: ten steps on one batch did not lower the loss")
     return counts
+
+
+# the CLI phase's corpus: video counts per split, and a POS vocabulary of
+# 31 Penn tags (+ 4 specials = POS_VOCAB) that holds --pos_tags' tags
+CLI_SPLITS = {"train": 128, "val": 64, "test": 256}
+CLI_TAGS = "DT NN VBZ VBG NN"
+PENN = ("CC CD DT EX FW IN JJ JJR JJS MD NN NNS NNP NNPS PDT POS PRP PRP$ RB RBR RBS RP TO UH VB "
+        "VBD VBG VBN VBP VBZ WDT").split()
+CLI_CAPTION_KERNELS = ("xgate", "pos_lstm", "attn_lstm")
+
+
+def write_cli_corpus(root: str, cfg, seed: int) -> None:
+    """A corpus directory as the CLIs read it, written with the port's own
+    writers (no HDF5): info.json (`CorpusInfo.save`), labels.npz and
+    features/ (`write_feature_dir`) at MSR-VTT width, CLI_SPLITS videos
+    from `draw_videos` (half padded in time, ~120 MB of features), a
+    10000-word vocabulary and PENN."""
+    import numpy as np
+
+    from controllable_xgating_torch.data.corpus import CorpusInfo
+    from controllable_xgating_torch.data.features import write_feature_dir
+    from controllable_xgating_torch.data.vocab import Vocab
+
+    n, s = sum(CLI_SPLITS.values()), cfg.data.seqs_per_video
+    app, mot, counts, caps, pos, ncaps = draw_videos(
+        np.random.default_rng(seed), n, s, cfg.model.app_dim, cfg.model.motion_dim)
+    t = np.arange(T)[None, :, None]
+    write_feature_dir(os.path.join(root, "features"), app * (t < counts[:, None, None]),
+                      mot * (t < counts[:, None, None]), counts)
+    np.savez(os.path.join(root, "labels.npz"), caps=caps, pos=pos, ncaps=ncaps.astype(np.int32))
+    splits, start = {}, 0
+    for name, size in CLI_SPLITS.items():
+        splits[name], start = list(range(start, start + size)), start + size
+    assert len(PENN) + 4 == POS_VOCAB
+    CorpusInfo(vocab=Vocab([f"w{i}" for i in range(VOCAB - 4)]), pos_vocab=Vocab(PENN),
+               video_ids=[f"video{i}" for i in range(n)], splits=splits, max_caption_len=MAX_LEN,
+               max_pos_len=MAX_LEN, seqs_per_video=s).save(os.path.join(root, "info.json"))
+
+
+def cli_phase(dev, cfg) -> dict:
+    """The three entry points users run, each through its `main(argv)` on
+    the card (the CLIs' default: bf16 policy, kernels on), with the launch
+    counts set to 0 before each run and read after it: train (joint, one
+    epoch: 2 steps of 64 videos, then greedy eval of the 64 val videos,
+    which writes `best`) launches K5 and K1-K3; eval beam 5 over the 256
+    test videos launches K1-K4 and gives the captions of `evaluate_split`
+    with `make_beam_caption_fn(5, ...)` on the same checkpoint (the library
+    path), timed in turns with it (three each, after the counted run);
+    eval --nbest 5; caption of 8 videos
+    greedy (K1-K3), with --pos_tags (no K2), --sample 3 --seed 0 twice
+    (the same output) and --nbest 10 (wider than K4's k <= 8: no
+    topk_tail); then caption once from the shell. Every metric must be
+    finite. Returns the phase's rates and the library path's wall split."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from controllable_xgating_torch.cli import caption as cli_caption
+    from controllable_xgating_torch.cli import eval as cli_eval
+    from controllable_xgating_torch.cli import train as cli_train
+    from controllable_xgating_torch.cli.common import load_corpus, restore_params
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.evaluator import evaluate_split
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.precision import compute_dtype, precision
+
+    root = os.path.join(HERE, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data, ck = os.path.join(root, "corpus"), os.path.join(root, "ck")
+    t0 = time.perf_counter()
+    write_cli_corpus(data, cfg, seed=2)
+    print(f"cli corpus: {json.dumps(CLI_SPLITS)} videos written in {time.perf_counter() - t0:.1f} s")
+    base = ["--data_dir", data, "--config", os.path.join(HERE, "configs", "msrvtt.json")]
+    joint = os.path.join(ck, "joint")
+    counts = {}
+
+    def run(label, main, argv, want=(), absent=()):
+        """One CLI run with its launches counted: (stdout, wall s)."""
+        before = compute_dtype()
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                main(base + argv)
+        except SystemExit as e:
+            fail(f"cli {label}: exited {e.code}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = counts[label] = kernels.launch_counts()
+        print(f"cli {label} launches {got}")
+        if [n for n in want if not got[n]] or [n for n in absent if got[n]]:
+            fail(f"cli {label}: expected launches of {list(want)} and none of {list(absent)}: {got}")
+        if compute_dtype() != before:
+            fail(f"cli {label}: left the compute policy at {compute_dtype()}")
+        return buf.getvalue(), dt
+
+    def finite(label, metrics):
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"cli {label}: metrics {metrics}")
+
+    def caption_lines(out):
+        return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+    # 1. train: joint XE, one epoch, every step logged
+    _, dt = run("train", cli_train.main, ["--checkpoint_dir", ck, "--stage", "joint", "--epochs", "1",
+                                          "--train.log_every_steps", "1"],
+                ("xent_fwd", "xent_bwd", *CLI_CAPTION_KERNELS), ("topk_tail",))
+    with open(os.path.join(joint, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    steps = [e for e in log if "loss" in e]
+    val = {k[4:]: v for e in log for k, v in e.items() if k.startswith("val_")}
+    finite("train", {**val, **{k: v for e in steps for k, v in e.items() if k != "ts"}})
+    n_train = CLI_SPLITS["train"]
+    if len(steps) != 2 or not os.path.exists(os.path.join(joint, "best.pt")):
+        fail(f"cli train: {len(steps)} steps logged (2 expected), or no best checkpoint")
+    if counts["train"]["xent_fwd"] != 2:
+        fail(f"cli train: expected launches of xent_fwd once per step (2): {counts['train']}")
+    step_rate = cfg.data.batch_size / (steps[1]["ts"] - steps[0]["ts"])
+    print(f"cli train [joint, 1 epoch, 2 steps of {cfg.data.batch_size} videos, val eval of "
+          f"{CLI_SPLITS['val']}]: {n_train / dt:.1f} train videos/s over the whole command "
+          f"({dt:.2f} s), second step {step_rate:.1f} videos/s (train_log.jsonl), val {json.dumps(val)}")
+
+    # 2. eval beam 5 over the test split, against the library path
+    n_test = CLI_SPLITS["test"]
+    out_json = os.path.join(root, "eval_beam5.json")
+    eval_argv = ["--checkpoint_dir", joint, "--split", "test", "--beam_size", "5", "--out", out_json]
+    _, cli_dt = run("eval-beam-5", cli_eval.main, eval_argv, (*CLI_CAPTION_KERNELS, "topk_tail"))
+    with open(out_json) as f:
+        res = json.load(f)
+    finite("eval-beam-5", res["metrics"])
+
+    def library(split: dict):
+        """The library path, its wall split into set-up (corpus and
+        checkpoint), decode (the caption function, synchronised) and the
+        rest (batches, strings, metrics) in `split`."""
+        from controllable_xgating_torch.utils.config import load_config
+
+        t = time.perf_counter()
+        with precision(cfg.model.dtype):
+            info, labels, store, c = load_corpus(data, load_config(base[3]))
+            params = restore_params(joint, c, dev)
+            beam = make_beam_caption_fn(5, c.model.max_pos_len, c.eval.max_decode_len,
+                                        length_penalty=c.eval.length_penalty,
+                                        block_unk=c.eval.block_unk)
+            split["setup"] = time.perf_counter() - t
+            split["decode"] = 0.0
+
+            def fn(*a):
+                t = time.perf_counter()
+                out = beam(*a)
+                torch.cuda.synchronize()
+                split["decode"] += time.perf_counter() - t
+                return out
+
+            res = evaluate_split(params, store, labels, info, split="test", batch_size=c.data.batch_size,
+                                 max_len=c.eval.max_decode_len, max_pos_len=c.model.max_pos_len,
+                                 caption_fn=fn, metrics=c.eval.metrics)
+        split["rest"] = time.perf_counter() - t - split["setup"] - split["decode"]
+        return res
+
+    # in turns after the counted run: library, cli, cli, library, ... (3 each)
+    rates, splits = {"cli": [], "library": []}, []
+    for turn in ("library", "cli", "cli", "library", "library", "cli"):
+        t = time.perf_counter()
+        if turn == "cli":
+            run("eval-beam-5 (timed)", cli_eval.main, eval_argv)
+        else:
+            splits.append({})
+            lib_metrics, lib_caps = library(splits[-1])
+        rates[turn].append(n_test / (time.perf_counter() - t))
+    if len(res["captions"]) != n_test or res["captions"] != lib_caps:
+        diff = sum(res["captions"].get(v) != c for v, c in lib_caps.items())
+        fail(f"cli eval-beam-5: captions differ from the library path's on {diff} videos")
+    if res["metrics"] != lib_metrics:
+        fail(f"cli eval-beam-5: metrics {res['metrics']} vs the library path's {lib_metrics}")
+    print(f"cli eval [beam 5, {n_test} test videos, {cfg.model.dtype}]: captions equal the library path's "
+          f"(evaluate_split + make_beam_caption_fn); captions/s over the whole command, first run "
+          f"{n_test / cli_dt:.2f}, then in turns (library, cli, cli, library, library, cli): cli "
+          f"{rates['cli']} library {rates['library']}, medians cli "
+          f"{sorted(rates['cli'])[1]:.2f} library {sorted(rates['library'])[1]:.2f}; "
+          f"library wall split, s: {json.dumps(splits)}; metrics {json.dumps(res['metrics'])}")
+
+    # 3. eval n-best 5
+    out_nbest = os.path.join(root, "eval_nbest5.json")
+    run("eval-nbest-5", cli_eval.main, ["--checkpoint_dir", joint, "--split", "test", "--nbest", "5",
+                                        "--out", out_nbest], (*CLI_CAPTION_KERNELS, "topk_tail"))
+    with open(out_nbest) as f:
+        res = json.load(f)
+    finite("eval-nbest-5", {**res["metrics"], **{"oracle_" + k: v for k, v in res["oracle_metrics"].items()}})
+    if res["beam_size"] != 5 or any(len(l) != 5 for l in res["captions"].values()):
+        fail("cli eval-nbest-5: expected 5 hypotheses per video")
+    print(f"cli eval [--nbest 5]: oracle {res['oracle_metric']} {res['oracle_metrics'][res['oracle_metric']]:.6g}"
+          f" vs rank-0 {res['metrics'][res['oracle_metric']]:.6g}")
+
+    # 4. caption 8 videos four ways, then once from the shell
+    vids = ",".join(f"video{i}" for i in range(n_train, n_train + 8))
+    cap = ["--checkpoint_dir", joint, "--video", vids]
+    out, _ = run("caption-greedy", cli_caption.main, cap, CLI_CAPTION_KERNELS, ("topk_tail",))
+    out_tags, _ = run("caption-pos-tags", cli_caption.main, cap + ["--pos_tags", CLI_TAGS],
+                      ("xgate", "attn_lstm"), ("pos_lstm", "topk_tail"))
+    sample = cap + ["--sample", "3", "--seed", "0"]
+    out_s1, _ = run("caption-sample", cli_caption.main, sample, CLI_CAPTION_KERNELS)
+    out_s2, _ = run("caption-sample (again)", cli_caption.main, sample, CLI_CAPTION_KERNELS)
+    out_nb, _ = run("caption-nbest-10", cli_caption.main, cap + ["--nbest", "10"],
+                    CLI_CAPTION_KERNELS, ("topk_tail",))
+    lines = {k: caption_lines(o) for k, o in (("greedy", out), ("pos_tags", out_tags),
+                                               ("sample", out_s1), ("nbest", out_nb))}
+    if any(len(v) != 8 for v in lines.values()):
+        fail(f"cli caption: expected 8 lines per run: {dict((k, len(v)) for k, v in lines.items())}")
+    if not all(line["pos_sequence"] == CLI_TAGS and line["controlled"] for line in lines["pos_tags"]):
+        fail("cli caption --pos_tags: the POS sequence is not the one given")
+    if out_s1 != out_s2 or not all(len(line["caption"]) == 3 for line in lines["sample"]):
+        fail("cli caption --sample 3 --seed 0: two runs differ")
+    if not all(len(line["captions"]) == 10 and all(math.isfinite(c["score"]) for c in line["captions"])
+               for line in lines["nbest"]):
+        fail("cli caption --nbest 10: expected 10 finite-scored captions per video")
+    print(f"cli caption [8 videos]: greedy {json.dumps(lines['greedy'][0])}; --pos_tags "
+          f"{json.dumps(lines['pos_tags'][0])}; --sample 3 --seed 0 twice: equal")
+    shell = subprocess.run(
+        [sys.executable, "-m", "controllable_xgating_torch.cli.caption", *base, *cap],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    if shell.returncode != 0 or len(caption_lines(shell.stdout)) != 8:
+        fail(f"python3 -m controllable_xgating_torch.cli.caption exited {shell.returncode}: "
+             f"{shell.stderr[-2000:]}")
+    if caption_lines(shell.stdout) != lines["greedy"]:
+        fail("cli caption from the shell: captions differ from the in-process run")
+    print("cli caption from the shell (python3 -m controllable_xgating_torch.cli.caption): exit 0, "
+          "the in-process run's captions")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"train_videos_s": n_train / dt, "train_second_step_videos_s": step_rate,
+            "eval_beam5_captions_s": {"first": n_test / cli_dt, **rates},
+            "library_wall_split_s": splits}
 
 
 def caption_fn(beam: bool, fused):
@@ -1102,6 +1363,10 @@ def main() -> None:
     xent = check_xent(dev, n_rows, VOCAB)
     counts["xe-train"] = train_phase(cfg, dev)
 
+    # the entry points users run: train, eval and caption through main(argv)
+    set_compute_dtype("float32")  # each CLI picks bf16 and must leave this as it found it
+    cli = cli_phase(dev, cfg)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -1137,6 +1402,7 @@ def main() -> None:
          "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": res[3]}
         for n, f, r, path, res in kernel_rows
     ]}))
+    print("cli phase (host clock, s and /s): " + json.dumps(cli))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,16 +35,17 @@ class CaptionerParams(nn.Module):
         self.decoder = decoder
 
 
-def init_captioner(cfg, seed: int = 0, device="cuda") -> CaptionerParams:
+def init_captioner(cfg, seed: Optional[int] = 0, device="cuda") -> CaptionerParams:
     """Random f32 parameters with the JAX package's shapes and
     distributions, drawn on the CPU from a seeded `torch.Generator` (so the
     same seed gives the same weights on any device), then moved to
-    `device`: the card unless the caller asks for the CPU.
-    `cfg` is a `ModelConfig` or a `Config`."""
+    `device`: the card unless the caller asks for the CPU. `seed=None`
+    draws nothing: the parameters are uninitialised storage of the same
+    shapes, for a checkpoint to fill. `cfg` is a `ModelConfig` or a `Config`."""
     cfg = getattr(cfg, "model", cfg)
     if cfg.vocab_size <= 0 or cfg.pos_vocab_size <= 0:
         raise ValueError("cfg.vocab_size / cfg.pos_vocab_size must be set")
-    gen = torch.Generator().manual_seed(seed)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
     encoder = init_encoder(
         gen, cfg.app_dim, cfg.motion_dim, cfg.hidden_dim, cfg.encoder_bidirectional,
         fusion=cfg.fusion,

@@ -12,7 +12,8 @@ and `scale`, `bias` [1, Vpad] f32 carry the vocab padded to a multiple of
 1024 (`experiments/int8_vocab_matmul.py`). The kernel reads the weight
 K-major, `int8_vocab_weights(wq)` = wq^T [Vpad, round_up(K, 64)] in its
 fragment order, made once per caption call, and writes only the n true
-columns.
+columns. Any depth K is taken: x gets zero columns up to a multiple of 8
+(`x_operand`, 16-byte rows for TMA), against which wq_t is already zero.
 """
 
 from __future__ import annotations
@@ -45,6 +46,19 @@ def int8_vocab_weights(wq: torch.Tensor) -> torch.Tensor:
     return w[:, :, src.to(wq.device)].reshape(vpad, kp).contiguous()
 
 
+def x_operand(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's x operand: bf16, contiguous, 16-byte aligned, with zero
+    columns past K up to a multiple of 8. `int8_vocab_weights` is zero on
+    those columns, so the sum is unchanged."""
+    xb = x.to(torch.bfloat16)
+    if x.shape[1] % 8:
+        xb = F.pad(xb, (0, -x.shape[1] % 8))
+    xb = xb.contiguous()
+    if xb.data_ptr() % 16:  # a view off 16-byte alignment: TMA reads 16-byte rows
+        xb = xb.clone()
+    return xb
+
+
 def int8_vocab_proj(
     x: torch.Tensor,      # [M, K]
     wq: torch.Tensor,     # [K, Vpad] int8
@@ -59,22 +73,21 @@ def int8_vocab_proj(
         return int8_vocab_plain(x, wq, scale, bias)[:, :n]
     m, k = x.shape
     vpad = wq.shape[1]
-    if k % 8 or vpad % _BN or not 0 < n <= vpad:
+    if vpad % _BN or not 0 < n <= vpad:
         raise ValueError(
-            f"int8_vocab kernel takes K % 8 == 0 (16-byte rows of x for TMA) and a padded width "
-            f"that is a multiple of {_BN} and >= n; got K {k}, width {vpad}, n {n}"
+            f"int8_vocab kernel takes a padded width that is a multiple of {_BN} and >= n; "
+            f"got width {vpad}, n {n}"
         )
     dev, f32 = x.device, torch.float32
     wq_t = int8_vocab_weights(wq) if wq_t is None else wq_t
     ldq = wq_t.shape[1]
-    xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # a view off 16-byte alignment: TMA reads 16-byte rows
-        xb = xb.clone()
+    xb = x_operand(x)
+    kx = xb.shape[1]
     out = torch.empty((m, n), dtype=f32, device=dev)
     if m == 0:
         return out
     ptrs = [
-        build.check(xb, "x", (m, k), torch.bfloat16, dev),
+        build.check(xb, "x", (m, kx), torch.bfloat16, dev),
         build.check(wq_t, "wq_t", (vpad, -(-k // 64) * 64), torch.int8, dev),
         build.check(scale, "scale", (1, vpad), f32, dev),
         build.check(bias, "bias", (1, vpad), f32, dev),
@@ -82,7 +95,7 @@ def int8_vocab_proj(
     ]
     if ptrs[1] % 16:
         raise ValueError("int8_vocab kernel: wq_t must be 16-byte aligned")
-    rc = build.library().cxg_int8_vocab_fwd(*ptrs, m, k, n, vpad, ldq, build.stream_ptr(dev))
+    rc = build.library().cxg_int8_vocab_fwd(*ptrs, m, kx, n, vpad, ldq, build.stream_ptr(dev))
     build.raise_on_error(rc, "int8_vocab")
     int8_vocab_proj.launches += 1
     return out

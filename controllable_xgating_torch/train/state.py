@@ -192,15 +192,15 @@ class CheckpointManager:
         with open(path + ".infos.json", "w") as f:
             json.dump(infos, f)
 
-    def restore(self, name: str, template: TrainState) -> tuple[TrainState, dict]:
-        """Load slot `name` into `template` (in place) and return it with
-        the sidecar. A checkpoint written under another vocabulary, fusion
-        mode or `pos_guidance` is refused with the flag to change."""
+    def _load(self, name: str, params: CaptionerParams) -> tuple[dict, dict]:
+        """Read slot `name` into `params` (in place): (sidecar, the saved
+        blob). A checkpoint written under another vocabulary, fusion mode
+        or `pos_guidance` is refused with the flag to change."""
         path = self._path(name)
         infos = self.load_infos(self.directory, name)
         saved_model = (infos.get("config") or {}).get("model")
         if saved_model:
-            dec = template.params.decoder
+            dec = params.decoder
             if saved_model.get("vocab_size") not in (None, dec.vocab_size):
                 raise ValueError(
                     f"checkpoint {path!r} was trained with vocab_size="
@@ -208,7 +208,7 @@ class CheckpointManager:
                     f"{dec.vocab_size} — the corpus changed under this "
                     "checkpoint_dir; point --checkpoint_dir somewhere fresh"
                 )
-            tmpl_fusion = template.params.encoder.xgate.mode
+            tmpl_fusion = params.encoder.xgate.mode
             saved_fusion = saved_model.get("fusion", "xgate")
             if saved_fusion != tmpl_fusion:
                 raise ValueError(
@@ -226,7 +226,19 @@ class CheckpointManager:
                 )
         blob = torch.load(path + ".pt", map_location="cpu", weights_only=True)
         with torch.no_grad():
-            template.params.load_state_dict(blob["params"])
+            params.load_state_dict(blob["params"])
+        return infos, blob
+
+    def restore_params(self, name: str, params: CaptionerParams) -> dict:
+        """Load slot `name`'s parameters into `params` (in place, on their
+        device) and return the sidecar; the optimizer state, step and
+        generator are not read."""
+        return self._load(name, params)[0]
+
+    def restore(self, name: str, template: TrainState) -> tuple[TrainState, dict]:
+        """Load slot `name` into `template` (in place) and return it with
+        the sidecar, with `restore_params`' architecture checks."""
+        infos, blob = self._load(name, template.params)
         template.opt_state.load_state_dict(blob["opt_state"])
         template.step = int(blob["step"])
         template.gen.set_state(blob["gen"])

@@ -1,0 +1,313 @@
+"""The port's caption and eval CLIs vs the JAX package's, on the CPU.
+
+A fixture corpus at the widths of `tests/test_cli.py` (variable frame
+counts), its features converted to the port's `features/` layout, and one
+checkpoint: seeded numpy weights saved by the JAX package (orbax), then
+bridged to the port as the JAX side reads it back
+(`controllable_xgating_tpu.cli.common.restore_params` -> numpy ->
+`bridge.from_numpy` -> the port's `CheckpointManager`, with the JAX
+sidecar). Each JAX CLI run happens once per module. Captions and POS
+sequences must be equal, n-best scores within 1e-4 (the CLI rounds them
+to 4 decimals), metrics within rel 1e-12 (as `tests/test_torch_slice.py`
+holds `evaluate_split`).
+"""
+
+import contextlib
+import io
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from controllable_xgating_tpu.cli import caption as j_caption
+from controllable_xgating_tpu.cli import common as j_common
+from controllable_xgating_tpu.cli import eval as j_eval
+from controllable_xgating_tpu.data.fixtures import make_fixture_corpus
+from controllable_xgating_tpu.train import state as j_state
+from controllable_xgating_torch import bridge
+from controllable_xgating_torch.cli import caption as t_caption
+from controllable_xgating_torch.cli import common as t_common
+from controllable_xgating_torch.cli import eval as t_eval
+from controllable_xgating_torch.cli import train as t_train
+from controllable_xgating_torch.data import features as t_features
+from controllable_xgating_torch.ops.precision import compute_dtype
+from controllable_xgating_torch.train import state as t_state
+from test_torch_quant import numpy_params
+from tools.import_torch_checkpoint import param_paths
+
+torch.set_num_threads(1)
+SMALL = [
+    "--model.hidden_dim", "20", "--model.embed_dim", "12",
+    "--model.attn_dim", "12", "--model.pos_embed_dim", "12",
+    "--model.num_frames", "5", "--model.dropout", "0.0",
+    "--data.batch_size", "6", "--data.caps_per_video_train", "2",
+    "--train.lr", "3e-3", "--train.log_every_steps", "1000",
+    "--eval.max_decode_len", "12", "--eval.beam_size", "3",
+]
+JAX_FLAGS = ["--compile_cache", ""]  # keep the JAX CLIs' XLA cache off disk
+PORT_FLAGS = ["--device", "cpu"]
+
+
+def make_fixture(root: str):
+    """(data_dir, JAX checkpoint dir, port checkpoint dir): the fixture
+    corpus with both feature layouts, and the same weights in both
+    packages' `best` slots."""
+    data = os.path.join(root, "corpus")
+    make_fixture_corpus(data, num_videos=18, num_frames=5, app_dim=18, motion_dim=10,
+                        caps_per_video=5, seqs_per_video=5, max_caption_len=12,
+                        variable_frames=True)
+    t_features.main([data])
+    _, cfg = j_common.parse_with_overrides(j_common.base_parser("fixture"), ["--data_dir", data, *SMALL])
+    _, _, _, cfg = j_common.load_corpus(data, cfg)
+    jp, _ = numpy_params(cfg, seed=31, eos_bias=0.5)  # captions of mixed lengths
+    jdir, tdir = os.path.join(root, "ck_jax"), os.path.join(root, "ck_torch")
+    j_state.CheckpointManager(jdir).save("best", j_state.create_train_state(jp, cfg, 1), {
+        "epoch": 0, "step": 0, "best_score": 0.0, "metric": "CIDEr", "config": cfg.to_dict()})
+    bridge_checkpoint(jdir, tdir, cfg)
+    return data, jdir, tdir
+
+
+def bridge_checkpoint(jdir: str, tdir: str, cfg, name: str = "best") -> None:
+    """The JAX checkpoint `name` as the port's: its parameters through
+    numpy and the bridge, its sidecar copied."""
+    jparams = j_common.restore_params(jdir, cfg, name=name)
+    tree = {n: np.asarray(leaf) for n, leaf in param_paths(jparams)}
+    ts = t_state.create_train_state(bridge.from_numpy(tree, cfg), cfg)
+    t_state.CheckpointManager(tdir).save(name, ts, j_state.CheckpointManager.load_infos(jdir, name))
+
+
+def run_cli(main, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def first_json(out: str) -> dict:
+    return json.JSONDecoder().raw_decode(out[out.index("{"):])[0]
+
+
+@pytest.fixture(scope="module")
+def fixture(tmp_path_factory):
+    return make_fixture(str(tmp_path_factory.mktemp("cli")))
+
+
+# --- caption ---
+
+CAPTION_CASES = {
+    "one_id": ["--video", "video3"],
+    "comma_list": ["--video", "video0,video5,video11,video16"],
+    "pos_tags": ["--video", "video0,video7", "--pos_tags", "DT NN VBZ VBG NN"],
+    "beam3": ["--video", "video2,video9,video14", "--beam_size", "3"],
+    "nbest3": ["--video", "video4,video13", "--nbest", "3"],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_captions(fixture):
+    data, jdir, _ = fixture
+    return {case: json_lines(run_cli(j_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", jdir, *args, *SMALL, *JAX_FLAGS]))
+        for case, args in CAPTION_CASES.items()}
+
+
+@pytest.mark.parametrize("case", list(CAPTION_CASES))
+def test_caption_cli_matches_jax(fixture, jax_captions, case):
+    data, _, tdir = fixture
+    got = json_lines(run_cli(t_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, *CAPTION_CASES[case], *SMALL, *PORT_FLAGS]))
+    want = jax_captions[case]
+    assert len(got) == len(want) == len(CAPTION_CASES[case][1].split(","))
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for key in w:
+            if key != "captions":
+                assert g[key] == w[key], (key, g, w)
+        for gc, wc in zip(g.get("captions", []), w.get("captions", [])):
+            assert gc["caption"] == wc["caption"]
+            assert gc["score"] == pytest.approx(wc["score"], abs=1e-4)
+    if case == "pos_tags":
+        assert all(g["pos_sequence"] == "DT NN VBZ VBG NN" and g["controlled"] for g in got)
+    if case == "nbest3":
+        assert all(len(g["captions"]) == 3 and g["beam_size"] == 3 for g in got)
+
+
+def test_caption_cli_samples_are_reproducible_by_seed(fixture):
+    """--sample N draws N captions per video from a torch.Generator seeded
+    with --seed (not JAX's random stream): the same seed gives the same
+    captions, the JSON keys are the JAX CLI's."""
+    data, _, tdir = fixture
+    run = lambda seed: json_lines(run_cli(t_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, "--video", "video1,video6",
+        "--sample", "3", "--temperature", "0.8", "--seed", str(seed), *SMALL, *PORT_FLAGS]))
+    a, b = run(0), run(0)
+    assert a == b
+    assert [o["video"] for o in a] == ["video1", "video6"]
+    for o in a:
+        assert o.keys() == {"video", "caption", "pos_sequence", "controlled", "sampled",
+                            "temperature"}
+        assert o["sampled"] and o["temperature"] == 0.8 and len(o["caption"]) == 3
+        assert all(isinstance(c, str) for c in o["caption"])
+    assert any(run(s) != a for s in (1, 2, 3))
+
+
+# --- eval ---
+
+EVAL_CASES = {
+    "greedy": ["--beam_size", "1"],
+    "beam3": ["--beam_size", "3"],
+    "nbest3": ["--nbest", "3"],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_evals(fixture, tmp_path_factory):
+    data, jdir, _ = fixture
+    out = {}
+    for case, args in EVAL_CASES.items():
+        path = str(tmp_path_factory.mktemp("jax_eval") / f"{case}.json")
+        printed = first_json(run_cli(j_eval.main, [
+            "--data_dir", data, "--checkpoint_dir", jdir, "--out", path, *args, *SMALL,
+            *JAX_FLAGS]))
+        with open(path) as f:
+            out[case] = (printed, json.load(f))
+    return out
+
+
+def close_metrics(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-12), k
+
+
+@pytest.mark.parametrize("case", list(EVAL_CASES))
+def test_eval_cli_matches_jax(fixture, jax_evals, case, tmp_path):
+    data, _, tdir = fixture
+    printed = first_json(run_cli(t_eval.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, *EVAL_CASES[case], *SMALL, *PORT_FLAGS]))
+    with open(os.path.join(tdir, "eval_test.json")) as f:
+        written = json.load(f)
+    want_printed, want = jax_evals[case]
+    assert printed.keys() == want_printed.keys()
+    assert written.keys() == want.keys()
+    for key in ("split", "beam_size", "nbest", "oracle_metric"):
+        assert written.get(key) == want.get(key)
+    close_metrics(printed["metrics"], want_printed["metrics"])
+    close_metrics(written["metrics"], want["metrics"])
+    assert set(want["metrics"]) >= {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"}
+    if case == "nbest3":
+        close_metrics(written["oracle_metrics"], want["oracle_metrics"])
+        assert written["captions"].keys() == want["captions"].keys()
+        for v, hyps in want["captions"].items():
+            assert [h["caption"] for h in written["captions"][v]] == [h["caption"] for h in hyps]
+            np.testing.assert_allclose([h["score"] for h in written["captions"][v]],
+                                       [h["score"] for h in hyps], rtol=1e-5, atol=1e-6)
+    else:
+        assert written["captions"] == want["captions"]
+
+
+# --- device, policy and the flags the port does not run yet ---
+
+
+def test_cli_scopes_the_compute_policy(fixture):
+    """A bf16 run on the CPU leaves the process's policy at f32, so later
+    callers in the process (tests on this worker) are unaffected."""
+    data, _, tdir = fixture
+    assert compute_dtype() == torch.float32
+    out = json_lines(run_cli(t_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, "--video", "video3",
+        "--compute_dtype", "bfloat16", *SMALL, *PORT_FLAGS]))
+    assert len(out) == 1 and isinstance(out[0]["caption"], str)
+    assert compute_dtype() == torch.float32
+
+
+@pytest.mark.parametrize("main", [t_caption.main, t_eval.main, t_train.main],
+                         ids=["caption", "eval", "train"])
+def test_cli_without_a_card_refuses_cuda(fixture, monkeypatch, capsys, main, tmp_path):
+    """--device defaults to cuda; without a CUDA device the CLI exits
+    non-zero with a message and does not run on the CPU."""
+    data, _, tdir = fixture
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--data_dir", data, "--checkpoint_dir", tdir, *SMALL]
+    if main is t_caption.main:
+        argv += ["--video", "video0"]
+    if main is t_train.main:
+        argv[3] = str(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        main(argv)
+    assert e.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert compute_dtype() == torch.float32
+
+
+DEFERRED = [
+    pytest.param("caption", ["--video", "video0", "--ensemble", "a", "b"], "A9", id="caption-ensemble"),
+    pytest.param("eval", ["--ensemble", "a", "b"], "A9", id="eval-ensemble"),
+    pytest.param("caption", ["--video", "video0", "--beam_size", "3", "--eval.diversity_groups", "3"],
+                 "A9", id="caption-diversity"),
+    pytest.param("eval", ["--beam_size", "3", "--eval.diversity_groups", "3"], "A9",
+                 id="eval-diversity"),
+    pytest.param("train", ["--stage", "scst"], "A6", id="train-scst"),
+    pytest.param("train", ["--epochs", "2", "--train.scst_start_epoch", "1"], "A6",
+                 id="train-scst_start_epoch"),
+    pytest.param("eval", ["--parallel.num_devices", "2"], "A7", id="eval-num_devices"),
+    pytest.param("train", ["--parallel.num_devices", "4"], "A7", id="train-num_devices"),
+    pytest.param("train", ["--tensorboard", "tb"], "--tensorboard", id="train-tensorboard"),
+    pytest.param("caption", ["--video", "video0", "--profile", "prof"], "A10", id="caption-profile"),
+    pytest.param("train", ["--debug_nans"], "A10", id="train-debug_nans"),
+]
+
+
+@pytest.mark.parametrize("cli,args,names", DEFERRED)
+def test_cli_refuses_what_is_not_ported(fixture, capsys, tmp_path, cli, args, names):
+    """A flag of the JAX CLIs that belongs to a later ROADMAP item exits 1
+    with a message naming the item; none is silently ignored."""
+    data, _, tdir = fixture
+    main = {"caption": t_caption.main, "eval": t_eval.main, "train": t_train.main}[cli]
+    ck = str(tmp_path) if cli == "train" else tdir
+    with pytest.raises(SystemExit) as e:
+        main(["--data_dir", data, "--checkpoint_dir", ck, *args, *SMALL, *PORT_FLAGS])
+    assert e.value.code == 1
+    assert names in capsys.readouterr().err
+    assert compute_dtype() == torch.float32
+
+
+def test_cli_does_not_take_the_compile_cache_flag(fixture, capsys):
+    """The port has no compile cache: --compile_cache exits 1 with a
+    message saying so, and leaves the policy as it was."""
+    data, _, tdir = fixture
+    with pytest.raises(SystemExit) as e:
+        t_caption.main(["--data_dir", data, "--checkpoint_dir", tdir, "--video", "video0",
+                        "--compile_cache", "x", *SMALL, *PORT_FLAGS])
+    assert e.value.code == 1
+    assert "--compile_cache has no counterpart" in capsys.readouterr().err
+    assert compute_dtype() == torch.float32
+
+
+def test_use_ckpt_config_adopts_the_checkpoint_architecture(fixture, jax_captions):
+    """--use_ckpt_config takes the model knobs from the checkpoint's
+    sidecar over the flags: a wrong --model.hidden_dim is replaced and the
+    caption is the JAX CLI's; without a sidecar it is refused."""
+    data, _, tdir = fixture
+    args = ["--data_dir", data, "--checkpoint_dir", tdir, *CAPTION_CASES["one_id"], *SMALL,
+            "--model.hidden_dim", "24", *PORT_FLAGS]
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        run_cli(t_caption.main, args)
+    assert json_lines(run_cli(t_caption.main, args + ["--use_ckpt_config"])) == \
+        jax_captions["one_id"]
+    with pytest.raises(FileNotFoundError, match="cannot adopt its config"):
+        t_common.adopt_ckpt_model_config(tdir, t_common.load_config(), "missing")
+
+
+def test_caption_and_eval_refuse_a_missing_checkpoint(fixture, tmp_path):
+    data, _, _ = fixture
+    for main, extra in ((t_caption.main, ["--video", "video0"]), (t_eval.main, [])):
+        with pytest.raises(FileNotFoundError, match="refusing to fall back"):
+            main(["--data_dir", data, "--checkpoint_dir", str(tmp_path / "none"), *extra,
+                  *SMALL, *PORT_FLAGS])

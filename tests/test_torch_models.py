@@ -132,6 +132,20 @@ def test_init_captioner_matches_jax_shapes_and_ranges(fusion):
     assert tp.encoder.xgate.mode == fusion
 
 
+@pytest.mark.parametrize("fusion", ["xgate", "concat"])
+def test_init_captioner_without_seed_is_storage_for_a_checkpoint(fusion):
+    """seed=None draws nothing but gives the seeded tree's names, shapes
+    and structure, so a checkpoint of it loads into it whole."""
+    cfg = make_cfg(fusion=fusion)
+    seeded = t_cap.init_captioner(cfg, seed=5, device="cpu")
+    empty = t_cap.init_captioner(cfg, seed=None, device="cpu")
+    assert {n: (p.shape, p.dtype) for n, p in empty.named_parameters()} == \
+        {n: (p.shape, p.dtype) for n, p in seeded.named_parameters()}
+    assert empty.encoder.xgate.mode == fusion
+    empty.load_state_dict(seeded.state_dict())
+    assert all(torch.equal(a, b) for a, b in zip(empty.parameters(), seeded.parameters()))
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("fusion,fused", [("xgate", False), ("xgate", True), ("concat", True)])
 def test_encode(fusion, fused, masked):

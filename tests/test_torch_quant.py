@@ -135,6 +135,34 @@ def test_kernel_operand_reproduces_the_plain_version_exactly(k, n):
     assert torch.equal(qk.wq_t, wt) and qk[:4] == q[:4] and t_q.with_kernel_operand(qk) is qk
 
 
+@pytest.mark.parametrize("k", [6, 42, 64, 100])
+def test_kernel_x_operand_pads_k_with_zero_columns(k):
+    """The int8 kernel's x operand (`x_operand`) is x in bf16 with zero
+    columns up to a multiple of 8 (16-byte TMA rows); against the K-major
+    weight, zero past K, the padded product equals the plain one exactly
+    (integer inputs: exact sums in any order). No copy of columns at a
+    multiple of 8."""
+    from controllable_xgating_torch.ops.kernels.int8_vocab import (
+        int8_vocab_plain,
+        int8_vocab_weights,
+        x_operand,
+    )
+
+    w, b = rand_proj(k, 300, seed=k)
+    q = t_q.quantize_vocab_proj(T(w), T(b))
+    x = torch.from_numpy(np.random.default_rng(k).integers(-4, 5, (9, k)).astype(np.float32))
+    xb = x_operand(x)
+    kx = -(-k // 8) * 8
+    assert xb.shape == (9, kx) and xb.dtype == torch.bfloat16 and xb.is_contiguous()
+    assert torch.equal(xb[:, :k], x.bfloat16()) and not xb[:, k:].any()
+    wt = int8_vocab_weights(q.wq)  # rows: vocab; columns: K in fragment order, zero past K
+    p = torch.arange(wt.shape[1])
+    kk = (p // 64) * 64 + 16 * ((p % 64 % 16) // 4) + 8 * ((p % 4) // 2) + 2 * ((p % 64) // 16) + p % 2
+    w_k = torch.zeros_like(wt).index_copy_(1, kk, wt)[:, :kx].float()  # back to K order
+    out = (xb.float() @ w_k.t()) * q.scale + q.bias
+    assert torch.equal(out, int8_vocab_plain(x, q.wq, q.scale, q.bias))
+
+
 def make_cfg(vocab=40):
     """A narrow config (also used by tests/test_torch_beam_tails.py)."""
     return Config().replace_flat({
