@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning, quantized-decoding and XE-training
-paths and its three command-line entry points once on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning, quantized-decoding, XE-training
+and SCST paths and its three command-line entry points once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -67,12 +68,24 @@ Phases, each fatal on failure:
      Adam first moments within a relative norm of 1e-5, parameters within
      atol 1e-5); ten steps on one batch at dropout 0,
      whose loss must fall;
+  8b. SCST at MSR-VTT width under bf16: the reward tables at MSR-VTT's
+     caption scale (10000 videos x 20 seeded captions of 5-25 words, df
+     over 6513), with their host and device build seconds and bytes on the
+     card; the reward on the card against the port on the CPU over 256
+     candidates (atol 1e-5) and against the host `CiderDScorer` over 64
+     (rtol 1e-4, atol 1e-5); each realization (separate rollouts, paired
+     rollout) for 1 warm-up and 5 timed steps of 64 videos (videos/s,
+     device ms and busy share of one profiled step, 28 attn_lstm launches
+     a step and no other kernel, the POS generator bitwise unchanged,
+     rewards and losses finite); the baseline's f32 tokens with the
+     kernels against the plain path (>= 98% of the batch);
   9. the three entry points users run, through `main(argv)` on the card
      (bf16 policy, kernels on), on a corpus directory written with the
      port's writers (info.json, labels.npz, features/; 128 train, 64 val
      and 256 test videos at MSR-VTT width, half padded in time), each run
      with its own launch counts: `cli.train` (joint, one epoch, then val
-     eval: K5 and K1-K3), `cli.eval --beam_size 5` (K1-K4; the captions of
+     eval: K5 and K1-K3), `cli.train --stage scst --init_from` that
+     checkpoint (K3 at every step, K1-K3 in the val eval, no K5), `cli.eval --beam_size 5` (K1-K4; the captions of
      `evaluate_split` with `make_beam_caption_fn(5, ...)` on the same
      checkpoint, captions/s of both in turns), `cli.eval --nbest 5`,
      `cli.caption` on 8 videos greedy (K1-K3), with `--pos_tags` (no K2),
@@ -650,15 +663,23 @@ def xent_bounds(n: int, v: int) -> dict:
     }
 
 
-def draw_videos(rng, n: int, s: int, da: int, dm: int):
-    """n seeded videos (half padded in time) with s captions and POS tag
-    sequences each: BOS, 5-25 random ids, EOS, PAD to MAX_LEN. Returns
-    (app, motion, frame counts, caps, pos, ncaps)."""
+def draw_features(rng, n: int, da: int, dm: int):
+    """n seeded videos' features, half of them padded in time (zero past
+    their frame count only where a caller masks them): (app, motion,
+    frame counts)."""
     import numpy as np
 
     app = rng.normal(size=(n, T, da)).astype(np.float32)
     mot = rng.normal(size=(n, T, dm)).astype(np.float32)
     counts = np.where(rng.random(n) < 0.5, T, rng.integers(T // 2, T, n))
+    return app, mot, counts
+
+
+def draw_captions(rng, n: int, s: int):
+    """n x s seeded captions and POS tag sequences: BOS, 5-25 random ids,
+    EOS, PAD to MAX_LEN, as int32."""
+    import numpy as np
+
     lengths = rng.integers(6, MAX_LEN - 1, (n, s))
     col = np.arange(MAX_LEN)[None, None, :]
     words = lengths[..., None]
@@ -667,8 +688,17 @@ def draw_videos(rng, n: int, s: int, da: int, dm: int):
     for arr in (caps, pos):
         arr[..., 0] = 1  # BOS
         np.put_along_axis(arr, words, 2, axis=-1)  # EOS after the words
+    return caps.astype(np.int32), pos.astype(np.int32)
+
+
+def draw_videos(rng, n: int, s: int, da: int, dm: int):
+    """n seeded videos (`draw_features`) with s captions and POS tag
+    sequences each (`draw_captions`), s // 2 .. s of them real. Returns
+    (app, motion, frame counts, caps, pos, ncaps)."""
+    app, mot, counts = draw_features(rng, n, da, dm)
+    caps, pos = draw_captions(rng, n, s)
     ncaps = rng.integers(s // 2, s + 1, n)
-    return app, mot, counts, caps.astype(np.int32), pos.astype(np.int32), ncaps
+    return app, mot, counts, caps, pos, ncaps
 
 
 def make_train_corpus(cfg, seed: int):
@@ -858,6 +888,180 @@ def train_phase(cfg, dev) -> dict:
     return counts
 
 
+# SCST at MSR-VTT's caption scale: 10000 videos x 20 captions, df over
+# the 6513 of its train split; 1 warm-up + SCST_STEPS timed steps
+SCST_VIDEOS, SCST_DF_VIDEOS, SCST_CAPS, SCST_STEPS = 10000, 6513, 20, 5
+SCST_CARD_CPU_ATOL = 1e-5
+SCST_HOST_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX package's device-vs-host bar
+
+
+def id_words(ids) -> str:
+    """Token ids -> "w<id> ..." up to the first EOS, without PAD and BOS:
+    the strings the host scorer takes (a bijection on words)."""
+    out = []
+    for t in ids.tolist():
+        if t == 2:  # EOS
+            break
+        if t > 2:
+            out.append(f"w{t}")
+    return " ".join(out)
+
+
+def scst_candidates(rng, caps, vids):
+    """Decoded-style candidates [len(vids), MAX_LEN] (no BOS): a third
+    a reference of their own video, a third that reference with every
+    third word replaced, a third random words with EOS."""
+    import numpy as np
+
+    cand = np.zeros((len(vids), MAX_LEN), np.int32)
+    for i, v in enumerate(vids):
+        ref = caps[v, rng.integers(0, caps.shape[1]), 1:]
+        if i % 3 < 2:
+            cand[i, :MAX_LEN - 1] = ref
+            if i % 3 == 1:
+                cand[i, :MAX_LEN - 1:3] = np.where(ref[::3] > 2, rng.integers(4, VOCAB, len(ref[::3])),
+                                                   ref[::3])
+        else:
+            k = int(rng.integers(5, 26))
+            cand[i, :k] = rng.integers(4, VOCAB, k)
+            cand[i, k] = 2  # EOS
+    return cand
+
+
+def scst_phase(cfg, dev) -> dict:
+    """SCST (config 4) at MSR-VTT width under the bf16 policy. Reward
+    tables at MSR-VTT's caption scale (host and device seconds, bytes on
+    the card); `cider_d_device` on the card against the port on the CPU
+    over 256 candidates and against the host `CiderDScorer` over 64; each
+    realization (separate rollouts, paired rollout) for 1 warm-up and
+    SCST_STEPS timed steps of 64 videos: videos/s on the host clock,
+    device ms of one step and its busy share (`utils/profiling.py`), K3's
+    28 launches a step and no other kernel, the POS generator bitwise
+    unchanged, every reward and loss finite; then the baseline's tokens
+    with the kernels against the plain path under f32 (>= AGREE_MIN of the
+    batch). Returns the launch counts of each realization's timed steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.infer.greedy import greedy_decode
+    from controllable_xgating_torch.metrics.cider import CiderDScorer, compute_doc_freq
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops import cider_device as cd
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.ops.precision import set_compute_dtype
+    from controllable_xgating_torch.train.scst import make_scst_train_step, scst_context
+    from controllable_xgating_torch.train.state import create_train_state, make_optimizer
+    from controllable_xgating_torch.utils.profiling import device_time_ms, profile_call
+
+    rng = np.random.default_rng(4)
+    caps, _ = draw_captions(rng, SCST_VIDEOS, SCST_CAPS)
+    ncaps = np.full(SCST_VIDEOS, SCST_CAPS, np.int32)
+    t0 = time.perf_counter()
+    host = cd.host_tables(caps, ncaps, range(SCST_DF_VIDEOS))
+    t1 = time.perf_counter()
+    tables = cd.precompute_ref_stats(host.to(dev))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    parts = {k: v.numel() * v.element_size() for k, v in tables.tensors().items()}
+    print(f"scst tables [{SCST_VIDEOS} videos x {SCST_CAPS} captions, df over {SCST_DF_VIDEOS}]: "
+          f"host {t1 - t0:.3f} s, device {t2 - t1:.3f} s (copy + reference stats), "
+          f"{tables.nbytes() / 2 ** 20:.1f} MiB on the card; {tables.table_rows.shape[0]} df rows, "
+          f"dir_bits {tables.dir_bits}, bucket_steps {tables.bucket_steps}; MiB by field "
+          + json.dumps({k: round(v / 2 ** 20, 1) for k, v in parts.items()}))
+
+    # the reward on the card against the port on the CPU (the same df table,
+    # the reference statistics of the 256 videos computed there)
+    vids = rng.choice(SCST_VIDEOS, 256, replace=False)
+    cand = torch.as_tensor(scst_candidates(rng, caps, vids))
+    card = cd.cider_d_device(tables, cand.to(dev), torch.as_tensor(vids, device=dev)).cpu()
+    cpu = cd.precompute_ref_stats(dataclasses.replace(
+        host, ref_caps=host.ref_caps[vids], ref_counts=host.ref_counts[vids]))
+    ref = cd.cider_d_device(cpu, cand, torch.arange(len(vids)))
+    err = (card - ref).abs().max().item()
+    if not torch.isfinite(card).all() or err > SCST_CARD_CPU_ATOL:
+        fail(f"scst reward: card vs CPU max |diff| {err:.3e} > {SCST_CARD_CPU_ATOL}")
+    # ... and against the host scorer on strings, df over the same videos
+    t3 = time.perf_counter()
+    df, num = compute_doc_freq({v: [id_words(caps[v, j]) for j in range(SCST_CAPS)]
+                                for v in range(SCST_DF_VIDEOS)})
+    scorer = CiderDScorer(df=df, df_num_segments=num)
+    host_scores = np.array([scorer.score({0: [id_words(caps[v, j]) for j in range(SCST_CAPS)]},
+                                         {0: [id_words(c)]})[0]
+                            for c, v in zip(cand.numpy()[:64], vids[:64])])
+    if not np.allclose(card.numpy()[:64], host_scores, **SCST_HOST_TOL):
+        fail(f"scst reward: card vs host CiderDScorer max |diff| "
+             f"{np.abs(card.numpy()[:64] - host_scores).max():.3e} outside {SCST_HOST_TOL}")
+    print(f"scst reward: card vs CPU over 256 candidates max |diff| {err:.3e} (atol "
+          f"{SCST_CARD_CPU_ATOL}); card vs host CiderDScorer over 64 max |diff| "
+          f"{np.abs(card.numpy()[:64] - host_scores).max():.3e} ({SCST_HOST_TOL}; host df "
+          f"{time.perf_counter() - t3:.1f} s); rewards by kind (own reference, edited, random) "
+          + json.dumps([round(card[i::3].mean().item(), 4) for i in range(3)]))
+
+    # the steps: batches of train videos with seeded features, padded in time
+    bs = cfg.data.batch_size
+    n = (1 + SCST_STEPS) * bs
+    app, mot, counts = draw_features(rng, n, cfg.model.app_dim, cfg.model.motion_dim)
+    mask = (np.arange(T)[None, :] < counts[:, None]).astype(np.float32)
+    app *= mask[:, :, None]
+    mot *= mask[:, :, None]
+    train_vids = rng.choice(SCST_DF_VIDEOS, n, replace=False).astype(np.int32)
+    batches = [{"app": app[i:i + bs], "motion": mot[i:i + bs], "frame_mask": mask[i:i + bs],
+                "video_indices": train_vids[i:i + bs]} for i in range(0, n, bs)]
+    set_compute_dtype("bfloat16")
+    set_fused_kernels(None)
+    out = {}
+    for paired in (False, True):
+        label = "scst-paired" if paired else "scst"
+        c = cfg.replace_flat({"train.scst_paired_rollout": paired})
+        state = create_train_state(init_captioner(c, seed=0, device=dev), c)
+        pos0 = [p.detach().clone() for p in state.params.pos.parameters()]
+        step = make_scst_train_step(make_optimizer(c, 100, "scst"), c, tables)
+        state, m = step(state, batches[0])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        metrics = []
+        for batch in batches[1:]:
+            state, m = step(state, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = out[label] = kernels.launch_counts()
+        want = {k: MAX_LEN * SCST_STEPS if k == "attn_lstm" else 0 for k in got}
+        print(f"{label} launches {got}")
+        if got != want:
+            fail(f"{label}: expected {want} launches in {SCST_STEPS} steps: {got}")
+        host_m = [{k: float(v) for k, v in mm.items()} for mm in metrics]
+        if not all(math.isfinite(v) for mm in host_m for v in mm.values()):
+            fail(f"{label}: metrics {host_m}")
+        wall, ka, _ = profile_call(step, (state, batches[1]))
+        device_ms = device_time_ms(ka)
+        if any(not torch.equal(a, b) for a, b in zip(state.params.pos.parameters(), pos0)):
+            fail(f"{label}: the POS generator moved")
+        print(f"{label} [bfloat16, batch {bs}, {MAX_LEN} steps a rollout]: "
+              f"{SCST_STEPS * bs / dt:.1f} videos/s ({dt / SCST_STEPS * 1e3:.1f} ms/step over "
+              f"{SCST_STEPS} steps); one profiled step: wall {wall:.2f} ms, device {device_ms:.2f} ms, "
+              f"busy share {device_ms / wall:.3f}; POS generator unchanged; last step "
+              + json.dumps(host_m[-1]))
+
+    # the baseline's tokens, kernels vs plain path, f32
+    set_compute_dtype("float32")
+    with torch.no_grad():
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+        ctx, summary = scst_context(state.params, b, MAX_LEN)
+        toks = [greedy_decode(state.params.decoder, ctx, summary, MAX_LEN, fused=f)
+                for f in (True, False)]
+    agree = (toks[0] == toks[1]).all(1).float().mean().item()
+    print(f"scst baseline tokens kernels vs plain [float32, batch {bs}]: agreement {agree:.4f}")
+    if agree < AGREE_MIN:
+        fail(f"scst baseline f32 agreement {agree:.4f} < {AGREE_MIN}")
+    set_compute_dtype("bfloat16")
+    return out
+
+
 # the CLI phase's corpus: video counts per split, and a POS vocabulary of
 # 31 Penn tags (+ 4 specials = POS_VOCAB) that holds --pos_tags' tags
 CLI_SPLITS = {"train": 128, "val": 64, "test": 256}
@@ -981,6 +1185,29 @@ def cli_phase(dev, cfg) -> dict:
           f"{CLI_SPLITS['val']}]: {n_train / dt:.1f} train videos/s over the whole command "
           f"({dt:.2f} s), second step {step_rate:.1f} videos/s (train_log.jsonl), val {json.dumps(val)}")
 
+    # 1b. train --stage scst from that checkpoint: the baseline through K3
+    # at every step, then the val eval (K1-K3)
+    scst_dir = os.path.join(ck, "scst")
+    _, scst_dt = run("train-scst", cli_train.main,
+                     ["--checkpoint_dir", ck, "--stage", "scst", "--init_from", joint, "--epochs", "1",
+                      "--train.log_every_steps", "1"],
+                     CLI_CAPTION_KERNELS, ("xent_fwd", "xent_bwd", "topk_tail"))
+    with open(os.path.join(scst_dir, "train_log.jsonl")) as f:
+        scst_log = [json.loads(line) for line in f]
+    scst_steps = [{k: v for k, v in e.items() if k in ("step", "loss", "grad_norm", "reward_sample",
+                                                       "reward_greedy", "advantage")}
+                  for e in scst_log if "loss" in e]
+    finite("train-scst", {f"{k}{e['step']}": v for e in scst_steps for k, v in e.items()})
+    if len(scst_steps) != 2 or not all("reward_greedy" in e for e in scst_steps) \
+            or not os.path.exists(os.path.join(scst_dir, "best.pt")):
+        fail(f"cli train-scst: {scst_steps} logged (2 steps with rewards expected), or no best")
+    if counts["train-scst"]["attn_lstm"] < 2 * MAX_LEN:
+        fail(f"cli train-scst: expected {MAX_LEN} attn_lstm launches in each of 2 steps: "
+             f"{counts['train-scst']}")
+    print(f"cli train --stage scst [1 epoch, 2 steps of {cfg.data.batch_size} videos, val eval of "
+          f"{CLI_SPLITS['val']}]: {n_train / scst_dt:.1f} train videos/s over the whole command "
+          f"({scst_dt:.2f} s, reward tables included); train_log.jsonl {json.dumps(scst_steps)}")
+
     # 2. eval beam 5 over the test split, against the library path
     n_test = CLI_SPLITS["test"]
     out_json = os.path.join(root, "eval_beam5.json")
@@ -1089,6 +1316,7 @@ def cli_phase(dev, cfg) -> dict:
           "the in-process run's captions")
     shutil.rmtree(root, ignore_errors=True)
     return {"train_videos_s": n_train / dt, "train_second_step_videos_s": step_rate,
+            "train_scst_videos_s": n_train / scst_dt,
             "eval_beam5_captions_s": {"first": n_test / cli_dt, **rates},
             "library_wall_split_s": splits}
 
@@ -1363,6 +1591,10 @@ def main() -> None:
     xent = check_xent(dev, n_rows, VOCAB)
     counts["xe-train"] = train_phase(cfg, dev)
 
+    # SCST: the reward tables and the reward at MSR-VTT's caption scale,
+    # then both realizations' steps, the baseline through K3
+    scst = scst_phase(cfg, dev)
+
     # the entry points users run: train, eval and caption through main(argv)
     set_compute_dtype("float32")  # each CLI picks bf16 and must leave this as it found it
     cli = cli_phase(dev, cfg)
@@ -1402,6 +1634,7 @@ def main() -> None:
          "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": res[3]}
         for n, f, r, path, res in kernel_rows
     ]}))
+    print("scst phase launches in its timed steps: " + json.dumps(scst))
     print("cli phase (host clock, s and /s): " + json.dumps(cli))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

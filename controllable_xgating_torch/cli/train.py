@@ -1,17 +1,24 @@
-"""Train the captioner with cross-entropy: the POS generator (`pos`), the
-captioner with the POS branch frozen (`caption`), or both (`joint`).
-Checkpoints (`best`, `last`) and `train_log.jsonl` go to
-`<checkpoint_dir>/<stage>/`; a run resumes from that directory's `last`.
+"""Train the captioner: with cross-entropy, the POS generator (`pos`), the
+captioner with the POS branch frozen (`caption`) or both (`joint`); or
+fine-tune it with self-critical sequence training (`scst`, the CIDEr-D
+reward on the device, the POS branch frozen). Checkpoints (`best`,
+`last`) and `train_log.jsonl` go to `<checkpoint_dir>/<stage>/`; a run
+resumes from that directory's `last`. `train.scst_start_epoch` N >= 0
+switches a `caption` or `joint` run to SCST after N epochs, with the same
+parameters, optimizer state and step.
 
-Counterpart of `controllable_xgating_tpu/cli/train.py` for the XE stages
-on one device. A fresh start draws its weights with the port's
+Counterpart of `controllable_xgating_tpu/cli/train.py` on one device. A
+fresh start draws its weights with the port's
 `init_captioner(cfg, seed=train.seed)`, which are not the JAX package's
-for the same seed (another random stream); `--init_from` starts from a
-checkpoint's `best` with a fresh optimizer.
+for the same seed (another random stream), and SCST's samples are not
+JAX's either; `--init_from` starts from a checkpoint's `best` with a
+fresh optimizer.
 
   python -m controllable_xgating_torch.cli.train --data_dir D --stage pos
   python -m controllable_xgating_torch.cli.train --data_dir D --stage caption \\
       --init_from checkpoints/pos
+  python -m controllable_xgating_torch.cli.train --data_dir D --stage scst \\
+      --init_from checkpoints/caption
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from controllable_xgating_torch.cli.common import (
 from controllable_xgating_torch.data.loader import TrainBatchIterator
 from controllable_xgating_torch.ops.precision import precision
 from controllable_xgating_torch.train.loop import train_loop
+from controllable_xgating_torch.train.scst import build_scst_reward_tables, make_scst_train_step
 from controllable_xgating_torch.train.state import (
     CheckpointManager,
     create_train_state,
@@ -54,11 +62,6 @@ def main(argv=None) -> None:
     p.add_argument("--tensorboard", default=None, help=argparse.SUPPRESS)
     args, cfg = parse_with_overrides(p, argv)
     epochs = args.epochs or (cfg.train.pos_epochs if args.stage == "pos" else cfg.train.epochs)
-    if args.stage == "scst":
-        die("--stage scst is not ported yet (ROADMAP A6)")
-    if args.stage in ("caption", "joint") and 0 <= cfg.train.scst_start_epoch < epochs:
-        die(f"train.scst_start_epoch={cfg.train.scst_start_epoch} switches to SCST, "
-            "which is not ported yet (ROADMAP A6)")
     if args.tensorboard:
         die("--tensorboard is not ported: the port logs scalars to train_log.jsonl only")
     device, dtype = apply_runtime_flags(args, cfg)
@@ -83,12 +86,23 @@ def _train(args, cfg, epochs: int, device) -> None:
                                             init_seed=cfg.train.seed)
         if infos:
             log.info("resuming from %s at step %d", ckpt_dir, int(state.step))
-    step_fn = make_xe_train_step(make_optimizer(cfg, spe, stage=args.stage), cfg, stage=args.stage)
+    tx = make_optimizer(cfg, spe, stage=args.stage)
+    scst_step = lambda: make_scst_train_step(tx, cfg, build_scst_reward_tables(info, labels, device))
+    step_fn = scst_step() if args.stage == "scst" else make_xe_train_step(tx, cfg, stage=args.stage)
+    infos_extra = {"stage": args.stage, "config": cfg.to_dict()}
+    switch = cfg.train.scst_start_epoch
     with JsonlLogger(os.path.join(ckpt_dir, "train_log.jsonl"), echo=False) as jsonl:
-        _, result = train_loop(
+        loop = lambda state, step_fn, epochs, infos_extra: train_loop(
             state, step_fn, train_it, store, labels, info, cfg, epochs=epochs, ckpt=mgr,
-            jsonl=jsonl, infos_extra={"stage": args.stage, "config": cfg.to_dict()},
-        )
+            jsonl=jsonl, infos_extra=infos_extra)
+        if args.stage in ("caption", "joint") and 0 <= switch < epochs:
+            # XE for `switch` epochs, then SCST on the same state and optimizer
+            state, result_xe = loop(state, step_fn, switch, infos_extra)
+            log.info("switching to SCST at epoch %d", switch)
+            _, result = loop(state, scst_step(), epochs - switch, {**infos_extra, "stage": "scst"})
+            result["best"] = max(result["best"], result_xe["best"])
+        else:
+            _, result = loop(state, step_fn, epochs, infos_extra)
     log.info("done: best %s = %.4f", cfg.train.keep_best_metric, result["best"])
 
 

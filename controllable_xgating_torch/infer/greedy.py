@@ -1,7 +1,8 @@
 """Greedy and multinomial caption decoding.
 
 Counterpart of `controllable_xgating_tpu/infer/greedy.py` (`greedy_decode`,
-`sample_decode` and `mask_special_tokens` on one shared rollout). A Python
+`sample_decode` and `mask_special_tokens` on one shared rollout, and SCST's
+`paired_rollout`). A Python
 loop stands in for the scan; with `early_stop=True` it leaves once every
 row has emitted EOS, which costs one host sync per step. Tokens after EOS
 are PAD.
@@ -144,3 +145,43 @@ def sample_decode(
     finished). `generator` lives on the parameters' device."""
     return _rollout(params, ctx, summary, max_len, generator, temperature, fused, block_unk,
                     early_stop)
+
+
+def paired_rollout(
+    params: DecoderParams,
+    ctx: DecodeContext,
+    summary: torch.Tensor,
+    max_len: int,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    fused: Optional[bool] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SCST's greedy baseline and multinomial sample as one rollout of 2B
+    rows, without gradient -> (greedy tokens [B, L], sample tokens [B, L]).
+
+    Rows :B take the argmax, rows B: draw one `torch.multinomial` a step on
+    their [B, V] slice from `generator`, as `sample_decode` does, so the
+    same generator state gives `greedy_decode`'s and `sample_decode`'s
+    tokens. No logprobs: SCST recomputes logp(sample) teacher-forced.
+    `fused=True` takes every step through the decoder-step kernel's
+    wrapper at 2B rows, on weights packed once."""
+    b = summary.shape[0]
+    dev = summary.device
+    with torch.no_grad():
+        ctx2 = DecodeContext(*(None if x is None else torch.cat([x, x]) for x in ctx))
+        h, c = init_decoder_state(params, torch.cat([summary, summary]))
+        tok = torch.full((2 * b,), BOS, dtype=torch.long, device=dev)
+        alive = torch.ones((2 * b,), dtype=torch.bool, device=dev)
+        tokens = torch.full((2 * b, max_len), PAD, dtype=torch.long, device=dev)
+        kw = attn_lstm_weights(params) if fused else None
+        for t in range(max_len):
+            logits, h, c, _ = decode_step(params, ctx2, tok, h, c, fused=fused, kernel_weights=kw)
+            logits = mask_special_tokens(logits.float())
+            probs = torch.softmax(logits[b:] / temperature, dim=-1)
+            nxt = torch.cat([torch.argmax(logits[:b], dim=-1),
+                             torch.multinomial(probs, 1, generator=generator)[:, 0]])
+            nxt = torch.where(alive, nxt, torch.full_like(nxt, PAD))
+            alive = alive & (nxt != EOS)
+            tokens[:, t] = nxt
+            tok = nxt
+    return tokens[:b], tokens[b:]

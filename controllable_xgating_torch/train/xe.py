@@ -102,8 +102,17 @@ def xe_losses(
     return cap_loss, pos_loss
 
 
-def _to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(batch[k], device=device) for k in _BATCH_KEYS if k in batch}
+def batch_to_device(batch: dict, device, keys: tuple = _BATCH_KEYS) -> dict:
+    """The step's `keys` of a batch (numpy arrays or tensors) as tensors on
+    `device`; keys the batch lacks (`frame_mask`) are left out."""
+    return {k: torch.as_tensor(batch[k], device=device) for k in keys if k in batch}
+
+
+def param_grads(loss: torch.Tensor, leaves: list) -> list:
+    """d loss / d leaf for each leaf; a leaf the loss does not reach (the
+    concat ablation's gates, say) gets a zero gradient, as under jax.grad."""
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
 
 
 def make_xe_train_step(
@@ -128,12 +137,8 @@ def make_xe_train_step(
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         named = list(state.params.named_parameters())
         leaves = [p for _, p in named]
-        # a parameter the stage's loss does not reach (the concat ablation's
-        # gates) gets a zero gradient, as under jax.grad
-        grads_of = lambda loss: [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-        batch = _to_device(batch, leaves[0].device)
+        grads_of = lambda loss: param_grads(loss, leaves)
+        batch = batch_to_device(batch, leaves[0].device)
         b = batch["caps"].shape[0]
         if b % accum:
             raise ValueError(f"data.batch_size {b} must be divisible by train.accum_steps {accum}")

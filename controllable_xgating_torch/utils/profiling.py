@@ -12,7 +12,10 @@ the plain path:
     the entry point of `tools/quant_ab.py`; beam takes the grouped tail);
   train: one joint-stage XE step (`make_xe_train_step`) on a batch of 64
     videos x 5 seeded captions of 27 words (no PAD), dropout 0.5, the
-    batch already on the card.
+    batch already on the card; then one SCST step (`make_scst_train_step`)
+    of each realization on 64 videos of the same features, with reward
+    tables over 10000 videos x 20 seeded captions of 5-25 words, df over
+    6513 (MSR-VTT's caption scale).
 For each, one warm-up call, one call timed on the host clock (wall), then
 one call under `torch.profiler`, which gives the device time (kernels,
 copies and sets on the card), its ratio to the wall time (the device busy
@@ -119,8 +122,8 @@ def caption_calls(cfg, dev):
 
 
 def train_calls(cfg, dev):
-    """[("xe_step", step, (state, batch))]: one joint XE step on a batch
-    already on the card."""
+    """[(name, step, (state, batch))]: one joint XE step and one SCST step
+    of each realization, on batches already on the card."""
     import numpy as np
 
     from controllable_xgating_torch.models.captioner import init_captioner
@@ -140,7 +143,25 @@ def train_calls(cfg, dev):
     }
     state = create_train_state(init_captioner(cfg, seed=0, device=dev), cfg)
     step = make_xe_train_step(make_optimizer(cfg, 100), cfg, "joint")
-    return [("xe_step", step, (state, batch))]
+    calls = [("xe_step", step, (state, batch))]
+
+    from controllable_xgating_torch.ops.cider_device import build_reward_tables
+    from controllable_xgating_torch.train.scst import make_scst_train_step
+
+    n, s = 10000, 20
+    words = rng.integers(6, MAX_LEN - 1, (n, s))[..., None]
+    caps = np.where(np.arange(MAX_LEN) <= words, rng.integers(4, VOCAB, (n, s, MAX_LEN)), 0)
+    caps[..., 0] = 1
+    np.put_along_axis(caps, words, 2, axis=-1)
+    tables = build_reward_tables(caps, np.full(n, s), range(6513), device=dev)
+    scst_batch = {k: batch[k] for k in ("app", "motion", "frame_mask")}
+    scst_batch["video_indices"] = put(rng.choice(6513, b, replace=False))
+    for paired in (False, True):
+        c = cfg.replace_flat({"train.scst_paired_rollout": paired})
+        state = create_train_state(init_captioner(c, seed=0, device=dev), c)
+        step = make_scst_train_step(make_optimizer(c, 100, "scst"), c, tables)
+        calls.append((f"scst_{'paired_' if paired else ''}step", step, (state, scst_batch)))
+    return calls
 
 
 def main(argv=None) -> None:

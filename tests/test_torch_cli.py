@@ -1,4 +1,5 @@
-"""The port's caption and eval CLIs vs the JAX package's, on the CPU.
+"""The port's caption and eval CLIs, and the train CLI's SCST stage, vs
+the JAX package's, on the CPU.
 
 A fixture corpus at the widths of `tests/test_cli.py` (variable frame
 counts), its features converted to the port's `features/` layout, and one
@@ -9,7 +10,8 @@ bridged to the port as the JAX side reads it back
 sidecar). Each JAX CLI run happens once per module. Captions and POS
 sequences must be equal, n-best scores within 1e-4 (the CLI rounds them
 to 4 decimals), metrics within rel 1e-12 (as `tests/test_torch_slice.py`
-holds `evaluate_split`).
+holds `evaluate_split`). The XE stages of the train CLI are held in
+`tests/test_torch_cli_train.py`.
 """
 
 import contextlib
@@ -24,6 +26,7 @@ import torch
 from controllable_xgating_tpu.cli import caption as j_caption
 from controllable_xgating_tpu.cli import common as j_common
 from controllable_xgating_tpu.cli import eval as j_eval
+from controllable_xgating_tpu.cli import train as j_train
 from controllable_xgating_tpu.data.fixtures import make_fixture_corpus
 from controllable_xgating_tpu.train import state as j_state
 from controllable_xgating_torch import bridge
@@ -253,9 +256,6 @@ DEFERRED = [
                  "A9", id="caption-diversity"),
     pytest.param("eval", ["--beam_size", "3", "--eval.diversity_groups", "3"], "A9",
                  id="eval-diversity"),
-    pytest.param("train", ["--stage", "scst"], "A6", id="train-scst"),
-    pytest.param("train", ["--epochs", "2", "--train.scst_start_epoch", "1"], "A6",
-                 id="train-scst_start_epoch"),
     pytest.param("eval", ["--parallel.num_devices", "2"], "A7", id="eval-num_devices"),
     pytest.param("train", ["--parallel.num_devices", "4"], "A7", id="train-num_devices"),
     pytest.param("train", ["--tensorboard", "tb"], "--tensorboard", id="train-tensorboard"),
@@ -311,3 +311,64 @@ def test_caption_and_eval_refuse_a_missing_checkpoint(fixture, tmp_path):
         with pytest.raises(FileNotFoundError, match="refusing to fall back"):
             main(["--data_dir", data, "--checkpoint_dir", str(tmp_path / "none"), *extra,
                   *SMALL, *PORT_FLAGS])
+
+
+# --- train --stage scst and the train.scst_start_epoch switch ---
+
+SCST_TRAIN = ["--train.log_every_steps", "1", "--train.lr", "1e-4"]
+REWARDS = ("reward_sample", "reward_greedy", "advantage")
+
+
+@pytest.fixture(scope="module")
+def scst_runs(fixture, tmp_path_factory):
+    """`--stage scst --epochs 1` from the bridged joint checkpoint by each
+    CLI, and the port's `--stage joint --epochs 2 --train.scst_start_epoch 1`."""
+    data, jdir, tdir = fixture
+    root = str(tmp_path_factory.mktemp("scst_cli"))
+    common = ["--data_dir", data, "--stage", "scst", "--epochs", "1", *SMALL, *SCST_TRAIN]
+    run_cli(j_train.main, ["--checkpoint_dir", root + "/jax", "--init_from", jdir, *common,
+                           *JAX_FLAGS])
+    run_cli(t_train.main, ["--checkpoint_dir", root + "/torch", "--init_from", tdir, *common,
+                           *PORT_FLAGS])
+    run_cli(t_train.main, ["--data_dir", data, "--checkpoint_dir", root + "/switch", "--stage",
+                           "joint", "--epochs", "2", "--train.scst_start_epoch", "1", *SMALL,
+                           *SCST_TRAIN, *PORT_FLAGS])
+    return root
+
+
+def read_train_log(run_dir):
+    with open(os.path.join(run_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_train_scst_stage_matches_the_jax_cli_reward(scst_runs):
+    """`--stage scst --init_from` writes `scst/best`, `scst/last` and a
+    train log with the rewards at every step; the first step's greedy
+    baseline reward equals the JAX CLI's (rtol 1e-5): deterministic, no
+    dropout, the same first batch and weights."""
+    trun, jrun = scst_runs + "/torch/scst", scst_runs + "/jax/scst"
+    for name in ("best", "last"):
+        assert os.path.exists(os.path.join(trun, name + ".pt"))
+        assert t_state.CheckpointManager.load_infos(trun, name)["stage"] == "scst"
+    tlog, jlog = read_train_log(trun), read_train_log(jrun)
+    tsteps = [e for e in tlog if "loss" in e]
+    jsteps = [e for e in jlog if "loss" in e]
+    assert [e["step"] for e in tsteps] == [e["step"] for e in jsteps] == [1, 2]
+    for e in tsteps:
+        assert set(REWARDS) | {"loss", "grad_norm"} <= e.keys()
+        assert all(np.isfinite(e[k]) for k in REWARDS)
+    assert tsteps[0]["reward_greedy"] == pytest.approx(jsteps[0]["reward_greedy"], rel=1e-5)
+    assert tsteps[0]["reward_greedy"] > 0
+    assert any("val_CIDEr" in e for e in tlog)
+    assert compute_dtype() == torch.float32
+
+
+def test_train_scst_start_epoch_switches_to_scst(scst_runs):
+    """`train.scst_start_epoch 1 --epochs 2`: one XE epoch, then SCST on
+    the same state (the step count carries on); `last` says stage scst."""
+    run = scst_runs + "/switch/joint"
+    assert t_state.CheckpointManager.load_infos(run, "last")["stage"] == "scst"
+    steps = [e for e in read_train_log(run) if "loss" in e]
+    assert [e["step"] for e in steps] == [1, 2, 3, 4]
+    assert all("cap_loss" in e for e in steps[:2]) and all("reward_greedy" in e for e in steps[2:])
+    assert torch.load(os.path.join(run, "last.pt"), weights_only=True)["step"] == 4

@@ -800,3 +800,84 @@ def test_topk_keeps_the_stable_sort_order_on_the_card(dev, shape, k):
     ref_v, ref_i = torch.sort(x, dim=-1, descending=True, stable=True)
     assert torch.equal(idx, ref_i[:, :k])
     assert torch.equal(vals, ref_v[:, :k])
+
+
+def scst_corpus(n=300, s=20, length=28, vocab=10000, seed=0):
+    """n videos x s seeded captions: BOS, 5-25 random ids, EOS, PAD."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = rng.integers(6, length - 1, (n, s))[..., None]
+    col = np.arange(length)[None, None, :]
+    caps = np.where(col <= words, rng.integers(4, vocab, (n, s, length)), 0)
+    caps[..., 0] = 1
+    np.put_along_axis(caps, words, 2, axis=-1)
+    return caps.astype(np.int32), np.full(n, s, np.int32), rng
+
+
+def test_cider_d_device_on_the_card_matches_the_cpu(dev):
+    """The SCST reward on the card: the tables' hashes, df rows and
+    lookups equal the CPU's bit for bit, the reward within atol 1e-5."""
+    import numpy as np
+
+    from controllable_xgating_torch.ops import cider_device as cd
+
+    caps, ncaps, rng = scst_corpus()
+    cpu = cd.build_reward_tables(caps, ncaps, range(200), device="cpu")
+    card = cd.build_reward_tables(caps, ncaps, range(200), device=dev)
+    for name in ("table_rows", "table_dir", "ref_h1", "ref_h2", "ref_valid", "ref_tf"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    close(card.ref_idf.cpu(), cpu.ref_idf, dict(rtol=1e-6, atol=1e-6))
+    vids = rng.integers(0, 300, 256)
+    cand = np.zeros((256, 28), np.int32)
+    cand[::2, :27] = caps[vids[::2], 0, 1:]
+    cand[1::2, :12] = rng.integers(4, 10000, (128, 12))
+    cand[1::2, 12] = 2
+    vi = torch.as_tensor(vids)
+    got = cd.cider_d_device(card, torch.as_tensor(cand, device=dev), vi.to(dev))
+    want = cd.cider_d_device(cpu, torch.as_tensor(cand), vi)
+    close(got.cpu(), want, dict(rtol=0.0, atol=1e-5))
+    assert (want[::2] > 0).all()
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["unpaired", "paired"])
+def test_scst_baseline_tokens_kernels_match_plain_path(dev, paired):
+    """The SCST baseline (and the paired rollout's greedy half) through the
+    decoder-step kernel equals the plain path's tokens on 7 of 8 rows or
+    more, f32; one kernel launch a step; the loss of a step is finite."""
+    from controllable_xgating_torch.infer.greedy import greedy_decode, paired_rollout
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops import cider_device as cd
+    from controllable_xgating_torch.train.scst import scst_context, scst_loss
+    from controllable_xgating_torch.utils.config import Config
+
+    cfg = Config().replace_flat({
+        "model.app_dim": 40, "model.motion_dim": 24, "model.hidden_dim": 64,
+        "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
+        "model.vocab_size": 10000, "model.pos_vocab_size": 20, "model.num_frames": 6,
+    })
+    caps, ncaps, _ = scst_corpus()
+    tables = cd.build_reward_tables(caps, ncaps, range(200), device=dev)
+    params = init_captioner(cfg, seed=3, device=dev)
+    gd = torch.Generator(device=dev).manual_seed(4)
+    batch = {"app": torch.randn(8, 6, 40, generator=gd, device=dev),
+             "motion": torch.randn(8, 6, 24, generator=gd, device=dev),
+             "video_indices": torch.arange(8, device=dev)}
+    with precision("float32"), torch.no_grad():
+        ctx, summary = scst_context(params, batch, 10)
+        if paired:
+            run = lambda fused: paired_rollout(params.decoder, ctx, summary, 10,
+                                               torch.Generator(device=dev).manual_seed(0),
+                                               fused=fused)[0]
+        else:
+            run = lambda fused: greedy_decode(params.decoder, ctx, summary, 10, fused=fused)
+        kernels.reset_launch_counts()
+        tokens = run(True)
+        assert kernels.launch_counts()["attn_lstm"] == 10
+        plain = run(False)
+    assert (tokens == plain).all(1).float().mean().item() >= 0.875
+    params.requires_grad_(True)
+    with precision("float32"):
+        loss, aux = scst_loss(params, batch, tables, torch.Generator(device=dev).manual_seed(0), 10,
+                              10, fused_baseline=True, paired=paired)
+    assert torch.isfinite(loss) and all(torch.isfinite(v) for v in aux.values())
