@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning, quantized-decoding, XE-training
-and SCST paths and its three command-line entry points once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's captioning, quantized-decoding, ensemble and
+diverse-beam, XE-training and SCST paths and its three command-line entry
+points once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -55,6 +55,20 @@ Phases, each fatal on failure:
      than the lanes tail's k <= 8) through `make_beam_caption_fn` with the
      kernels: no topk_tail launch, under bf16 the tokens of the explicit
      grouped tail, under f32 >= 98% agreement with the plain path;
+  7b. the decode-science paths (A9, `a9_phase`): under f32 with the
+     kernels a [p, p] ensemble gives the single model's beam-5 n-best
+     (grouped tail; tokens equal, scores rtol 1e-6) and greedy tokens; a
+     same-architecture ensemble (seeds 0 and 1) and a cross-architecture
+     one (member 0 and a concat-fusion, psi-free member at hidden 384,
+     embed / attn / psi 256) at beam 5 through `evaluate_split` (bf16),
+     each with its launches (K3 once per member per step, K1 once per
+     xgate-mode member, no topk_tail) and f32 kernels-vs-plain agreement
+     >= 98%; captions/s of ensemble and single beam-5, kernels and plain,
+     in turns; diverse beam 6 in 3 groups (G 1 = G 0, no topk_tail, f32
+     agreement >= 98%, at penalty 1e3 the groups' first words disjoint),
+     with its captions/s; the kernels' beam-5 n-best rescored by
+     `sequence_logprob` under f32 (its scores to rtol 1e-4, lengths
+     equal);
   8. training at MSR-VTT width (batch 64 x 5 captions, vocab 10000, 35 POS
      tags) on seeded features and captions through `TrainBatchIterator`:
      the cross-entropy kernels (K5, forward and backward) against their
@@ -90,8 +104,11 @@ Phases, each fatal on failure:
      checkpoint, captions/s of both in turns), `cli.eval --nbest 5`,
      `cli.caption` on 8 videos greedy (K1-K3), with `--pos_tags` (no K2),
      `--sample 3 --seed 0` twice (equal), `--nbest 10` (no topk_tail), and
-     once as `python3 -m controllable_xgating_torch.cli.caption`; each CLI
-     must leave the process's compute policy as it found it;
+     once as `python3 -m controllable_xgating_torch.cli.caption`;
+     `cli.eval --ensemble` of the XE and SCST checkpoints and `cli.eval
+     --beam_size 6 --eval.diversity_groups 3` (K1-K3, no topk_tail, finite
+     metrics); each CLI must leave the process's compute policy as it
+     found it;
 then print every kernel's device microseconds per launch beside its
 bound, one JSON line of kernel results (eight kernels, each with its
 launches on its path, bound and times) and, last, one JSON line
@@ -140,7 +157,12 @@ PATH_KERNELS = {
     "greedy-int8": ("xgate", "pos_lstm", "attn_lstm", "int8_vocab"),
     "beam-5-int8": ("xgate", "pos_lstm", "attn_lstm", "int8_vocab"),
     "xe-train": ("xent_fwd", "xent_bwd"),
+    # the decode-science paths (A9): K4 never launches on them
+    "ensemble-beam-5": ("xgate", "pos_lstm", "attn_lstm"),
+    "ensemble-hetero-beam-5": ("xgate", "pos_lstm", "attn_lstm"),
+    "diverse-beam-6": ("xgate", "pos_lstm", "attn_lstm"),
 }
+CARD = "the card"  # its name and power limit, from nvidia-smi in main
 
 
 # kernel -> device microseconds per launch at its path's shape (torch.profiler)
@@ -1280,6 +1302,35 @@ def cli_phase(dev, cfg) -> dict:
     print(f"cli eval [--nbest 5]: oracle {res['oracle_metric']} {res['oracle_metrics'][res['oracle_metric']]:.6g}"
           f" vs rank-0 {res['metrics'][res['oracle_metric']]:.6g}")
 
+    # 3b. the decode-science CLI runs (A9): a log-prob ensemble of the XE and
+    # SCST checkpoints (K3 once per member per step, K1 once per member per
+    # batch), and diverse beam 6 in 3 groups; neither launches topk_tail
+    n_batches = -(-n_test // cfg.data.batch_size)
+    out_ens = os.path.join(root, "eval_ensemble.json")
+    _, ens_dt = run("eval-ensemble", cli_eval.main,
+                    ["--ensemble", joint, scst_dir, "--split", "test", "--out", out_ens],
+                    CLI_CAPTION_KERNELS, ("topk_tail",))
+    with open(out_ens) as f:
+        res = json.load(f)
+    finite("eval-ensemble", res["metrics"])
+    got = counts["eval-ensemble"]
+    if res["ensemble"] != [joint, scst_dir] or len(res["captions"]) != n_test \
+            or got["xgate"] != 2 * n_batches or got["attn_lstm"] % 2:
+        fail(f"cli eval-ensemble: expected 2 members, {n_test} captions, xgate 2 x {n_batches} "
+             f"and attn_lstm in pairs: {got}")
+    out_div = os.path.join(root, "eval_diverse.json")
+    _, div_dt = run("eval-diverse-beam-6", cli_eval.main,
+                    ["--checkpoint_dir", joint, "--split", "test", "--beam_size", "6",
+                     "--eval.diversity_groups", "3", "--out", out_div],
+                    CLI_CAPTION_KERNELS, ("topk_tail",))
+    with open(out_div) as f:
+        res_div = json.load(f)
+    finite("eval-diverse-beam-6", res_div["metrics"])
+    print(f"cli eval --ensemble [XE + SCST, beam 5, {n_test} test videos]: "
+          f"{n_test / ens_dt:.2f} captions/s over the whole command, metrics "
+          f"{json.dumps(res['metrics'])}; cli eval --beam_size 6 --eval.diversity_groups 3: "
+          f"{n_test / div_dt:.2f} captions/s, metrics {json.dumps(res_div['metrics'])}")
+
     # 4. caption 8 videos four ways, then once from the shell
     vids = ",".join(f"video{i}" for i in range(n_train, n_train + 8))
     cap = ["--checkpoint_dir", joint, "--video", vids]
@@ -1318,6 +1369,8 @@ def cli_phase(dev, cfg) -> dict:
     return {"train_videos_s": n_train / dt, "train_second_step_videos_s": step_rate,
             "train_scst_videos_s": n_train / scst_dt,
             "eval_beam5_captions_s": {"first": n_test / cli_dt, **rates},
+            "eval_ensemble_captions_s": n_test / ens_dt,
+            "eval_diverse_beam6_captions_s": n_test / div_dt,
             "library_wall_split_s": splits}
 
 
@@ -1485,6 +1538,189 @@ def beam10_phase(params, store, dev) -> None:
         fail(f"beam-10 f32 caption agreement {agree:.4f} < {AGREE_MIN}")
 
 
+# the A9 phase's second architecture: concat fusion, no psi, other widths
+# (K3 takes them: A and G multiples of 8, Hd + E padded to 8)
+A9_ALT = {"model.fusion": "concat", "model.pos_guidance": False, "model.hidden_dim": 384,
+          "model.embed_dim": 256, "model.attn_dim": 256, "model.pos_embed_dim": 256}
+
+
+def a9_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
+    """The decode-science paths at MSR-VTT width over the 256 videos, every
+    check fatal: (a) under f32 with the kernels, a [p, p] ensemble's beam-5
+    n-best equals the single model's grouped-tail beam-5 (tokens, scores to
+    rtol 1e-6) and its greedy tokens the single model's; (b) a
+    same-architecture ensemble (seeds 0 and 1) and a cross-architecture one
+    (member 0 and an A9_ALT member) at beam 5 through `evaluate_split`
+    under bf16, counting launches (K3 once per member per step, K1 once
+    per xgate-mode member, no topk_tail), kernels vs plain agreement >=
+    AGREE_MIN under f32 (printed under bf16); (c) diverse beam 6 / G 3 /
+    penalty 0.5 through `make_beam_caption_fn`: G = 1 gives G = 0's
+    tokens, G = 3 launches no topk_tail, f32 agreement >= AGREE_MIN, and at
+    penalty 1e3 the groups' first tokens are disjoint; (d) under f32,
+    `sequence_logprob` of the kernels' beam-5 n-best equals its scores to
+    rtol 1e-4, lengths equal. Prints captions/s of each, in turns with the
+    plain path, beside the card. Returns the phase's rates."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.data.vocab import EOS, PAD
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.ensemble import make_ensemble_caption_fn
+    from controllable_xgating_torch.infer.evaluator import evaluate_split, make_greedy_caption_fn
+    from controllable_xgating_torch.infer.score import make_sequence_scorer
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.ops.precision import precision
+
+    app, mot = (torch.as_tensor(x, device=dev) for x in store.get_batch(np.arange(B)))
+    mask = torch.as_tensor(store.frame_mask(np.arange(B)), device=dev)
+    p1 = init_captioner(cfg, seed=1, device=dev)
+    alt = init_captioner(cfg.replace_flat(A9_ALT), seed=2, device=dev)
+    ensembles = {"ensemble-beam-5": (params, p1), "ensemble-hetero-beam-5": (params, alt)}
+
+    def call(make, p, fused):
+        """One call of the caption function that `make()` builds under the
+        kernel setting `fused` (a factory reads the setting when it
+        builds), on the 256 videos."""
+        set_fused_kernels(fused)
+        try:
+            out = make()(p, app, mot, mask)
+        finally:
+            set_fused_kernels(None)
+        torch.cuda.synchronize()
+        return out
+
+    def agree(a, b):
+        return (a == b).all(-1).float().mean().item()
+
+    # (a) identity, f32, kernels on
+    with precision("float32"):
+        single = call(lambda: make_beam_caption_fn(K, MAX_LEN, MAX_LEN, topk_mode="grouped",
+                                                   return_all=True), params, None)
+        ens = call(lambda: make_ensemble_caption_fn(K, MAX_LEN, MAX_LEN, return_all=True),
+                   (params, params), None)
+        g1 = call(lambda: make_greedy_caption_fn(MAX_LEN, MAX_LEN), params, None)[0]
+        g2 = call(lambda: make_ensemble_caption_fn(1, MAX_LEN, MAX_LEN), (params, params),
+                  None)[0]
+    if not torch.equal(ens[0], single[0]) or not torch.equal(ens[2], single[2]):
+        fail(f"a9 identity: the [p, p] ensemble's beam-5 tokens differ from the single model's "
+             f"on {int((ens[0] != single[0]).flatten(1).any(1).sum())} videos")
+    if not torch.allclose(ens[1], single[1], rtol=1e-6, atol=0.0):
+        fail(f"a9 identity: scores differ by {(ens[1] - single[1]).abs().max().item():.3g}")
+    if not torch.equal(g1, g2):
+        fail(f"a9 identity: greedy tokens differ on {int((g1 != g2).any(1).sum())} videos")
+    print(f"a9 identity [float32, kernels, {CARD}]: [p, p] beam-5 n-best equals the single "
+          f"model's grouped tail (tokens equal, max score diff "
+          f"{(ens[1] - single[1]).abs().max().item():.3g}); greedy tokens equal")
+
+    # (b) two ensembles at beam 5 through evaluate_split (bf16, kernels on)
+    out = {}
+    make_ens = lambda: make_ensemble_caption_fn(K, MAX_LEN, MAX_LEN)
+    for label, members in ensembles.items():
+        m = len(members)
+        n_xgate = sum(p.encoder.xgate.mode == "xgate" for p in members)
+        with precision("bfloat16"):
+            kernels.reset_launch_counts()
+            metrics, caps = evaluate_split(members, store, labels, info, split="test",
+                                           batch_size=B, max_len=MAX_LEN, max_pos_len=MAX_LEN,
+                                           caption_fn=make_ens())
+            torch.cuda.synchronize()
+            counts[label] = got = kernels.launch_counts()
+            tokens = call(make_ens, members, None)[0]
+        print(f"{label} launches {got}")
+        if len(caps) != B or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{label}: {len(caps)} captions, metrics {metrics}")
+        # a caption without EOS means the loop ran all MAX_LEN steps
+        if bool((tokens == EOS).any(1).all()):
+            fail(f"{label}: every caption ended early; the launch count check needs a full run")
+        if got["attn_lstm"] != m * MAX_LEN or got["xgate"] != n_xgate or got["topk_tail"] \
+                or got["pos_lstm"] < m:
+            fail(f"{label}: expected attn_lstm {m} x {MAX_LEN}, xgate {n_xgate}, pos_lstm >= {m} "
+                 f"and no topk_tail: {got}")
+        agreement = {}
+        for policy in ("float32", "bfloat16"):
+            with precision(policy):
+                agreement[policy] = agree(call(make_ens, members, None)[0],
+                                          call(make_ens, members, False)[0])
+        print(f"{label} caption agreement kernels vs plain: {json.dumps(agreement)}; "
+              f"metrics {json.dumps(metrics)}")
+        if agreement["float32"] < AGREE_MIN:
+            fail(f"{label} f32 caption agreement {agreement['float32']:.4f} < {AGREE_MIN}")
+        out[label] = agreement
+
+    # captions/s in turns: ensemble (M = 2) and single beam-5, kernels and plain
+    fns = {"ensemble": (make_ens, ensembles["ensemble-beam-5"]),
+           "single": (lambda: make_beam_caption_fn(K, MAX_LEN, MAX_LEN), params)}
+    rates = {f"{n} {path}": [] for n in fns for path in ("kernels", "plain")}
+    with precision("bfloat16"):
+        for fused in (None, False, False, None):
+            for name, (make, p) in fns.items():
+                t = time.perf_counter()
+                call(make, p, fused)
+                rates[f"{name} {'kernels' if fused is None else 'plain'}"].append(
+                    B / (time.perf_counter() - t))
+    print(f"a9 captions/s [bfloat16, beam 5, {B} videos per call, {CARD}], in turns: "
+          f"{json.dumps(rates)}")
+    out["beam5_captions_s"] = rates
+
+    # (c) diverse beam 6 in 3 groups
+    div = lambda g, pen=0.5, length=MAX_LEN, **kw: lambda: make_beam_caption_fn(
+        6, MAX_LEN, length, diversity_groups=g, diversity_penalty=pen, **kw)
+    with precision("bfloat16"):
+        if not torch.equal(call(div(1), params, None)[0], call(div(0), params, None)[0]):
+            fail("diverse-beam-6: diversity_groups=1 differs from the plain beam")
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        call(div(3), params, None)
+        dt = time.perf_counter() - t
+        counts["diverse-beam-6"] = got = kernels.launch_counts()
+        print(f"diverse-beam-6 launches {got}")
+        if got["topk_tail"] or not all(got[n] for n in PATH_KERNELS["diverse-beam-6"]):
+            fail(f"diverse-beam-6: expected K1-K3 and no topk_tail: {got}")
+        drates = {"kernels": [], "plain": []}
+        for fused in (None, False, False, None):
+            t = time.perf_counter()
+            call(div(3), params, fused)
+            drates["kernels" if fused is None else "plain"].append(B / (time.perf_counter() - t))
+        bf16_agree = agree(call(div(3), params, None)[0], call(div(3), params, False)[0])
+        # penalty 1e3: after one step every video's 6 first words are
+        # distinct (the groups' choices disjoint); after all steps each
+        # video keeps one first word per group at least
+        first = call(div(3, 1e3, length=1, return_all=True), params, None)[0][:, :, 0]
+        full = call(div(3, 1e3, return_all=True), params, None)[0][:, :, 0]
+    if any(len(set(r)) != 6 for r in first.tolist()):
+        fail("diverse-beam-6 at penalty 1e3: two groups share a first token")
+    if any(len(set(r) - {PAD}) < 3 for r in full.tolist()):
+        fail("diverse-beam-6 at penalty 1e3: fewer than 3 distinct first tokens in a video's n-best")
+    with precision("float32"):
+        f32_agree = agree(call(div(3), params, None)[0], call(div(3), params, False)[0])
+    print(f"diverse-beam-6 [G 3, penalty 0.5, {CARD}]: {B / dt:.1f} captions/s (the counted call); "
+          f"in turns [bfloat16]: {json.dumps(drates)}; caption agreement kernels vs plain: "
+          f"float32 {f32_agree:.4f}, bfloat16 {bf16_agree:.4f}; penalty 1e3: groups' first "
+          f"tokens disjoint")
+    if f32_agree < AGREE_MIN:
+        fail(f"diverse-beam-6 f32 caption agreement {f32_agree:.4f} < {AGREE_MIN}")
+    out["diverse_beam6"] = {"captions_s": drates, "agree_f32": f32_agree, "agree_bf16": bf16_agree}
+
+    # (d) the kernels' beam-5 n-best rescored by the plain teacher-forced decoder
+    with precision("float32"):
+        toks, scores, _ = call(lambda: make_beam_caption_fn(K, MAX_LEN, MAX_LEN,
+                                                            return_all=True), params, None)
+        rep = lambda x: x.repeat_interleave(K, dim=0)
+        lp, n = make_sequence_scorer(MAX_LEN)(params, rep(app), rep(mot), rep(mask),
+                                              toks.reshape(B * K, MAX_LEN))
+        torch.cuda.synchronize()
+    rel = ((lp.reshape(B, K) - scores).abs() / scores.abs()).max().item()
+    print(f"a9 rescoring [float32]: sequence_logprob of the kernels' beam-5 n-best vs its scores, "
+          f"max relative difference {rel:.3g} over {B * K} rows")
+    if not torch.allclose(lp.reshape(B, K), scores, rtol=1e-4, atol=0.0):
+        fail(f"a9 rescoring: sequence_logprob differs from the beam's scores by rel {rel:.3g}")
+    if not torch.equal(n.reshape(B, K), (toks != PAD).sum(-1)):
+        fail("a9 rescoring: lengths differ")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1495,10 +1731,12 @@ def main() -> None:
         fail("run from the root of a checkout: controllable_xgating_torch/ not found")
     sys.path.insert(0, HERE)
     # the card's name and power limit, as nvidia-smi prints them
-    print(subprocess.run(
+    global CARD
+    CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip())
+    ).stdout.strip()
+    print(CARD)
     dev = torch.device("cuda:0")
 
     from controllable_xgating_torch.models.captioner import init_captioner
@@ -1584,6 +1822,8 @@ def main() -> None:
     k7 = int8_phase(params, cfg, store, labels, info, dev, counts)
     tails_phase(params, dev)
     beam10_phase(params, store, dev)
+    # ensembles (same and cross architecture), diverse beam and rescoring
+    a9 = a9_phase(params, cfg, store, labels, info, dev, counts)
 
     # the XE-training path: K5 against its plain version at the step's
     # shape, then the train steps
@@ -1635,6 +1875,7 @@ def main() -> None:
         for n, f, r, path, res in kernel_rows
     ]}))
     print("scst phase launches in its timed steps: " + json.dumps(scst))
+    print("a9 phase (host clock /s; agreement): " + json.dumps(a9))
     print("cli phase (host clock, s and /s): " + json.dumps(cli))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ port's kernels on the card (the dispatcher's choice, passed explicitly);
   python -m controllable_xgating_torch.cli.caption ... --sample 3 --seed 0
   python -m controllable_xgating_torch.cli.caption ... --beam_size 5
   python -m controllable_xgating_torch.cli.caption ... --nbest 5
+  python -m controllable_xgating_torch.cli.caption ... --ensemble ck/joint ck/scst --beam_size 5
+  python -m controllable_xgating_torch.cli.caption ... --beam_size 6 --eval.diversity_groups 3
 """
 
 from __future__ import annotations
@@ -24,17 +26,19 @@ import torch
 
 from controllable_xgating_torch.cli.common import (
     add_ckpt_args,
+    add_ensemble_arg,
+    adopt_run_config,
     apply_runtime_flags,
     base_parser,
     die,
     load_corpus,
-    maybe_adopt_ckpt_config,
     parse_with_overrides,
-    refuse_diverse_beam,
+    restore_ensemble_params,
     restore_params,
 )
 from controllable_xgating_torch.data.vocab import pad_encode
 from controllable_xgating_torch.infer.beam import beam_search
+from controllable_xgating_torch.infer.ensemble import make_auto_ensemble_caption_fn
 from controllable_xgating_torch.infer.greedy import greedy_decode, sample_decode
 from controllable_xgating_torch.models.captioner import encode_for_inference
 from controllable_xgating_torch.models.decoder import DecodeContext
@@ -59,6 +63,7 @@ def main(argv=None) -> None:
     p.add_argument("--nbest", type=int, default=0, metavar="N",
                    help="N>0: print the N best beam hypotheses with "
                         "scores (beam width = max(--beam_size, N, 2))")
+    add_ensemble_arg(p)
     args, cfg = parse_with_overrides(p, argv)
     if args.sample and (args.beam_size > 1 or args.nbest):
         die("--sample is mutually exclusive with --beam_size/--nbest")
@@ -68,9 +73,9 @@ def main(argv=None) -> None:
         die(f"--temperature must be > 0 (got {args.temperature}); "
             "use greedy (no --sample) for deterministic decoding")
     beam = max(args.beam_size, args.nbest, 2) if (args.beam_size > 1 or args.nbest) else 0
-    cfg = maybe_adopt_ckpt_config(args, cfg)
-    if beam:
-        refuse_diverse_beam(cfg)
+    if args.ensemble and args.sample:
+        die("--ensemble supports deterministic decoding only (drop --sample)")
+    cfg = adopt_run_config(args, cfg)
     device, dtype = apply_runtime_flags(args, cfg)
     with precision(dtype):
         _caption(args, cfg, beam, device)
@@ -86,7 +91,10 @@ def _caption(args, cfg, beam: int, device) -> None:
         if unknown:
             die(f"unknown video id(s) {unknown}")
     vidx = np.array([info.video_ids.index(v) for v in vids])
-    params = restore_params(args.checkpoint_dir, cfg, device, name=args.ckpt_name)
+    if args.ensemble:
+        params, _ = restore_ensemble_params(args.ensemble, cfg, device)
+    else:
+        params = restore_params(args.checkpoint_dir, cfg, device, name=args.ckpt_name)
 
     put = lambda x: None if x is None else torch.as_tensor(x, device=device)
     app, motion = map(put, store.get_batch(vidx))
@@ -105,29 +113,18 @@ def _caption(args, cfg, beam: int, device) -> None:
 
     n_samples = max(args.sample, 0)
     fused = fused_enabled(None)
-    max_len, scores = cfg.eval.max_decode_len, None
-    with torch.inference_mode():
-        ctx, summary, tags_out = encode_for_inference(
-            params, app, motion, frame_mask, pos_tags=pos_tags,
-            max_pos_len=cfg.model.max_pos_len, fused=fused, early_stop=True,
-        )
-        if n_samples:
-            # one rollout per (video, sample): rows repeated in place
-            rep = lambda x: None if x is None else x.repeat_interleave(n_samples, dim=0)
-            gen = torch.Generator(device=device).manual_seed(args.seed)
-            tokens, _ = sample_decode(
-                params.decoder, DecodeContext(*map(rep, ctx)), rep(summary), max_len, gen,
-                args.temperature, block_unk=cfg.eval.block_unk, fused=fused, early_stop=True,
-            )
-        elif beam:
-            tokens, scores = beam_search(
-                params.decoder, ctx, summary, beam, max_len,
-                length_penalty=cfg.eval.length_penalty, fused=fused,
-                block_unk=cfg.eval.block_unk, early_stop=True, return_all=bool(args.nbest),
-            )
-        else:
-            tokens = greedy_decode(params.decoder, ctx, summary, max_len, fused=fused,
-                                   block_unk=cfg.eval.block_unk, early_stop=True)
+    diversity = dict(diversity_groups=cfg.eval.diversity_groups,
+                     diversity_penalty=cfg.eval.diversity_penalty)
+    if args.ensemble:
+        out = make_auto_ensemble_caption_fn(
+            params, beam or 1, cfg.model.max_pos_len, cfg.eval.max_decode_len,
+            length_penalty=cfg.eval.length_penalty, block_unk=cfg.eval.block_unk,
+            return_all=bool(args.nbest), **diversity,
+        )(params, app, motion, frame_mask, pos_tags)
+        tokens, scores, tags_out = out if args.nbest else (out[0], None, out[1])
+    else:
+        tokens, scores, tags_out = _decode(args, cfg, params, app, motion, frame_mask, pos_tags,
+                                           beam, n_samples, fused, diversity)
     tokens, tags_out = tokens.cpu().numpy(), tags_out.cpu().numpy()
     if scores is not None:
         scores = scores.cpu().numpy()
@@ -149,7 +146,39 @@ def _caption(args, cfg, beam: int, device) -> None:
             "controlled": args.pos_tags is not None,
             **({"sampled": True, "temperature": args.temperature} if n_samples else {}),
             **({"beam_size": beam} if beam else {}),
+            **({"ensemble": len(args.ensemble)} if args.ensemble else {}),
         }))
+
+
+@torch.inference_mode()
+def _decode(args, cfg, params, app, motion, frame_mask, pos_tags, beam, n_samples, fused,
+            diversity):
+    """One model's tokens [B*S, L] (samples), [B, K, L] (n-best) or [B, L],
+    the n-best's scores or None, and the POS tags."""
+    max_len, scores = cfg.eval.max_decode_len, None
+    ctx, summary, tags_out = encode_for_inference(
+        params, app, motion, frame_mask, pos_tags=pos_tags,
+        max_pos_len=cfg.model.max_pos_len, fused=fused, early_stop=True,
+    )
+    if n_samples:
+        # one rollout per (video, sample): rows repeated in place
+        rep = lambda x: None if x is None else x.repeat_interleave(n_samples, dim=0)
+        gen = torch.Generator(device=app.device).manual_seed(args.seed)
+        tokens, _ = sample_decode(
+            params.decoder, DecodeContext(*map(rep, ctx)), rep(summary), max_len, gen,
+            args.temperature, block_unk=cfg.eval.block_unk, fused=fused, early_stop=True,
+        )
+    elif beam:
+        tokens, scores = beam_search(
+            params.decoder, ctx, summary, beam, max_len,
+            length_penalty=cfg.eval.length_penalty, fused=fused,
+            block_unk=cfg.eval.block_unk, early_stop=True, return_all=bool(args.nbest),
+            **diversity,
+        )
+    else:
+        tokens = greedy_decode(params.decoder, ctx, summary, max_len, fused=fused,
+                               block_unk=cfg.eval.block_unk, early_stop=True)
+    return tokens, scores, tags_out
 
 
 if __name__ == "__main__":

@@ -70,17 +70,18 @@ def apply_runtime_flags(args, cfg: Config) -> tuple[torch.device, str]:
     if cfg.parallel.num_devices > 1:
         die(f"parallel.num_devices={cfg.parallel.num_devices}: data parallelism is not "
             "ported yet (ROADMAP A7); the port runs on one device")
-    device = torch.device(args.device)
+    return runtime_device(args.device, args.compute_dtype, cfg)
+
+
+def runtime_device(name: str, compute_dtype, cfg: Config) -> tuple[torch.device, str]:
+    """(device, compute dtype) for `--device name` and `--compute_dtype`:
+    without a CUDA device, `cuda` exits 1 instead of carrying on on the
+    CPU."""
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         die("--device cuda: no CUDA device is available; pass --device cpu to run on the CPU")
-    dtype = args.compute_dtype or (cfg.model.dtype if device.type == "cuda" else "float32")
+    dtype = compute_dtype or (cfg.model.dtype if device.type == "cuda" else "float32")
     return device, dtype
-
-
-def refuse_diverse_beam(cfg: Config) -> None:
-    if cfg.eval.diversity_groups > 0:
-        die(f"eval.diversity_groups={cfg.eval.diversity_groups}: diverse beam search is not "
-            "ported yet (ROADMAP A9)")
 
 
 def parse_with_overrides(p: argparse.ArgumentParser, argv=None):
@@ -131,14 +132,10 @@ def add_ckpt_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--use_ckpt_config", action="store_true",
                    help="adopt the checkpoint's saved architecture knobs "
                         "(dims/fusion/pos_guidance) instead of flags")
-    # accepted so that it can be refused by name
-    p.add_argument("--ensemble", nargs="+", default=None, help=argparse.SUPPRESS)
 
 
 def maybe_adopt_ckpt_config(args, cfg: Config) -> Config:
-    """Apply --use_ckpt_config if set; refuse --ensemble."""
-    if args.ensemble:
-        die("--ensemble is not ported yet (ROADMAP A9)")
+    """Apply --use_ckpt_config if set."""
     if args.use_ckpt_config:
         cfg = adopt_ckpt_model_config(args.checkpoint_dir, cfg, args.ckpt_name)
     return cfg
@@ -147,6 +144,13 @@ def maybe_adopt_ckpt_config(args, cfg: Config) -> Config:
 def adopt_ckpt_model_config(ckpt_dir: str, cfg: Config, name: str = "best") -> Config:
     """Apply the checkpoint's saved architecture knobs to `cfg`, so an
     ablation checkpoint evaluates without re-passing every override."""
+    saved = saved_model_config(ckpt_dir, name)
+    return cfg.replace_flat({f"model.{k}": saved[k] for k in CKPT_MODEL_FIELDS if k in saved})
+
+
+def saved_model_config(ckpt_dir: str, name: str = "best") -> dict:
+    """The model section of checkpoint `name`'s sidecar (refused when the
+    sidecar is missing or carries none)."""
     try:
         infos = CheckpointManager.load_infos(ckpt_dir, name)
     except OSError as e:
@@ -159,7 +163,63 @@ def adopt_ckpt_model_config(ckpt_dir: str, cfg: Config, name: str = "best") -> C
             f"checkpoint {name!r} in {ckpt_dir!r} carries no model config; pass the "
             "architecture flags explicitly instead"
         )
-    return cfg.replace_flat({f"model.{k}": saved[k] for k in CKPT_MODEL_FIELDS if k in saved})
+    return saved
+
+
+def add_ensemble_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--ensemble", nargs="+", default=None, metavar="CKPT_DIR[:NAME]",
+        help="decode with a log-prob ensemble of 2+ checkpoints (NAME defaults to 'best'); "
+             "members may differ in architecture (fusion, psi, dims) but share the corpus; "
+             "the first member's saved model config is adopted and --checkpoint_dir is "
+             "ignored",
+    )
+
+
+def split_ckpt_spec(spec: str) -> tuple[str, str]:
+    """`<ckpt_dir>[:<name>]` -> (dir, name). Splits on the last colon, and
+    only when the suffix holds no '/': a path separator after the colon
+    means the colon belongs to the directory (`runs/2026:aug/ck1`)."""
+    d, sep, name = spec.rpartition(":")
+    if sep and "/" not in name:
+        return d, (name or "best")
+    return spec, "best"
+
+
+def restore_ensemble_params(specs: list, cfg: Config, device) -> tuple[tuple, int]:
+    """Restore >= 2 `<ckpt_dir>[:<name>]` checkpoints on `device` for
+    ensemble decoding -> (tuple of members' `CaptionerParams`, count).
+
+    Each member restores under its own saved model config (members may
+    differ in fusion, pos_guidance or dims) through `restore_params`, so a
+    missing checkpoint is refused, never replaced by random weights. A
+    member trained on another vocab than the run's corpus, or fewer than
+    two members, exit 1. Members of one architecture and of several come
+    back alike: the port decodes both on one path
+    (`infer/ensemble.py::make_ensemble_caption_fn`)."""
+    if len(specs) < 2:
+        die("--ensemble needs at least two checkpoints")
+    members = []
+    for spec in specs:
+        d, name = split_ckpt_spec(spec)
+        saved = saved_model_config(d, name)
+        vocab = saved.get("vocab_size", cfg.model.vocab_size)
+        if vocab != cfg.model.vocab_size:
+            die(f"ensemble member {spec} was trained with vocab {vocab}, run corpus has "
+                f"{cfg.model.vocab_size} — members must share the corpus")
+        members.append(restore_params(d, adopt_ckpt_model_config(d, cfg, name), device, name=name))
+    return tuple(members), len(members)
+
+
+def adopt_run_config(args, cfg: Config) -> Config:
+    """The run's architecture config: an ensemble run adopts its first
+    member's saved model config (the members' saved shapes are the only
+    ones that restore, so --model.* flags are replaced); a single
+    checkpoint follows --use_ckpt_config."""
+    if getattr(args, "ensemble", None):
+        d, name = split_ckpt_spec(args.ensemble[0])
+        return adopt_ckpt_model_config(d, cfg, name)
+    return maybe_adopt_ckpt_config(args, cfg)
 
 
 def _require(mgr: CheckpointManager, name: str) -> None:

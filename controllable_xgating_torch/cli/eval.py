@@ -7,6 +7,11 @@ Counterpart of `controllable_xgating_tpu/cli/eval.py`, on one device.
   python -m controllable_xgating_torch.cli.eval --data_dir D \\
       --checkpoint_dir checkpoints/joint --split test --beam_size 5
   python -m controllable_xgating_torch.cli.eval ... --nbest 5 --oracle_metric CIDErD
+  python -m controllable_xgating_torch.cli.eval ... --ensemble ck/joint ck/scst:best
+  python -m controllable_xgating_torch.cli.eval ... --beam_size 6 --eval.diversity_groups 3
+
+An ensemble's result goes next to its first member, as
+`eval_<split>_ensemble.json`, and records the members under "ensemble".
 """
 
 from __future__ import annotations
@@ -16,15 +21,18 @@ import os
 
 from controllable_xgating_torch.cli.common import (
     add_ckpt_args,
+    add_ensemble_arg,
+    adopt_run_config,
     apply_runtime_flags,
     base_parser,
     load_corpus,
-    maybe_adopt_ckpt_config,
     parse_with_overrides,
-    refuse_diverse_beam,
+    restore_ensemble_params,
     restore_params,
+    split_ckpt_spec,
 )
 from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+from controllable_xgating_torch.infer.ensemble import make_auto_ensemble_caption_fn
 from controllable_xgating_torch.infer.evaluator import (
     evaluate_split,
     evaluate_split_nbest,
@@ -42,6 +50,7 @@ def main(argv=None) -> None:
     p.add_argument("--beam_size", type=int, default=None,
                    help="beam width; 1 = greedy; unset = eval.beam_size")
     add_ckpt_args(p)
+    add_ensemble_arg(p)
     p.add_argument("--nbest", type=int, default=0, metavar="N",
                    help="N>0: n-best evaluation — score rank-0 AND the "
                         "per-video oracle over the top-N beam hypotheses "
@@ -51,12 +60,10 @@ def main(argv=None) -> None:
                    help="per-video metric the --nbest oracle maximizes")
     p.add_argument("--out", default=None, help="output JSON path")
     args, cfg = parse_with_overrides(p, argv)
-    cfg = maybe_adopt_ckpt_config(args, cfg)
+    cfg = adopt_run_config(args, cfg)
     beam = args.beam_size if args.beam_size is not None else cfg.eval.beam_size
     if args.nbest:
         beam = max(beam or 0, args.nbest, 2)
-    if beam and beam > 1:
-        refuse_diverse_beam(cfg)
     device, dtype = apply_runtime_flags(args, cfg)
     with precision(dtype):
         _eval(args, cfg, beam, device)
@@ -64,16 +71,27 @@ def main(argv=None) -> None:
 
 def _eval(args, cfg, beam: int, device) -> None:
     info, labels, store, cfg = load_corpus(args.data_dir, cfg)
-    params = restore_params(args.checkpoint_dir, cfg, device, name=args.ckpt_name)
-    if beam and beam > 1:
-        caption_fn = make_beam_caption_fn(
-            beam, cfg.model.max_pos_len, cfg.eval.max_decode_len,
+    diversity = dict(diversity_groups=cfg.eval.diversity_groups,
+                     diversity_penalty=cfg.eval.diversity_penalty)
+    if args.ensemble:
+        params, n_members = restore_ensemble_params(args.ensemble, cfg, device)
+        caption_fn = make_auto_ensemble_caption_fn(
+            params, beam or 1, cfg.model.max_pos_len, cfg.eval.max_decode_len,
             length_penalty=cfg.eval.length_penalty, block_unk=cfg.eval.block_unk,
-            return_all=bool(args.nbest),
+            return_all=bool(args.nbest), **diversity,
         )
+        log.info("ensemble decode over %d members", n_members)
     else:
-        caption_fn = make_greedy_caption_fn(cfg.model.max_pos_len, cfg.eval.max_decode_len,
-                                            block_unk=cfg.eval.block_unk)
+        params = restore_params(args.checkpoint_dir, cfg, device, name=args.ckpt_name)
+        if beam and beam > 1:
+            caption_fn = make_beam_caption_fn(
+                beam, cfg.model.max_pos_len, cfg.eval.max_decode_len,
+                length_penalty=cfg.eval.length_penalty, block_unk=cfg.eval.block_unk,
+                return_all=bool(args.nbest), **diversity,
+            )
+        else:
+            caption_fn = make_greedy_caption_fn(cfg.model.max_pos_len, cfg.eval.max_decode_len,
+                                                block_unk=cfg.eval.block_unk)
     if args.nbest:
         metrics, oracle, lists = evaluate_split_nbest(
             params, store, labels, info, caption_fn, args.nbest, split=args.split,
@@ -92,8 +110,15 @@ def _eval(args, cfg, beam: int, device) -> None:
         result["nbest"] = args.nbest
         result["oracle_metric"] = args.oracle_metric
         result["oracle_metrics"] = oracle
+    if args.ensemble:
+        result["ensemble"] = args.ensemble
     print(json.dumps(result, indent=2))
-    out = args.out or os.path.join(args.checkpoint_dir, f"eval_{args.split}.json")
+    if args.out:
+        out = args.out
+    elif args.ensemble:
+        out = os.path.join(split_ckpt_spec(args.ensemble[0])[0], f"eval_{args.split}_ensemble.json")
+    else:
+        out = os.path.join(args.checkpoint_dir, f"eval_{args.split}.json")
     with open(out, "w") as f:
         json.dump({**result, "captions": captions}, f, indent=2)
     log.info("wrote %s", out)

@@ -1,8 +1,8 @@
-"""Batched beam search, single model.
+"""Batched beam search: one model or an ensemble, with optional diversity
+groups.
 
 Counterpart of `controllable_xgating_tpu/infer/beam.py` (`beam_search`,
-`make_beam_caption_fn`, `row_topk_block`) for one model without diversity
-groups:
+`make_beam_caption_fn`, `row_topk_block`):
 
   * all B videos x K beams advance together as one [B*K] decoder batch;
   * per step, the candidate tail picks the K best continuations of each
@@ -22,11 +22,22 @@ block maxima (`row_topk_block`; the port's `topk` prescreens long rows
 itself, so the two run the same code), and `"flat"` takes one top-K over
 the flattened [B, K*V] pool. `"auto"` picks lanes on the kernel path, and
 grouped with `vocab_q` (the weight-only int8 projection, which lanes does
-not take) or off it. Auto and an explicit `"lanes"` take grouped where
-the top-K kernel does not take the shape (`lanes_fits`: a beam wider than
-its `MAX_K`, or a decoder too wide for its shared memory), as the
-reference routes on its own `lanes_fits`. Ensembles and diverse beam are
-not ported yet.
+not take), for an ensemble or diverse beam, or off the kernel path. Auto
+and an explicit `"lanes"` take grouped where the top-K kernel does not
+take the shape (`lanes_fits`: a beam wider than its `MAX_K`, or a decoder
+too wide for its shared memory), as the reference routes on its own
+`lanes_fits`.
+
+An ensemble (`n_members > 0`) passes per-member sequences of parameters,
+contexts and summaries: every member steps its own decoder (through the
+decoder-step kernel on the kernel path) on the shared tokens, the
+candidates come from the members' mean log-probabilities
+(`infer/ensemble.py::combine_logp`), and every member's state follows the
+same reordering. Members of one architecture and of different ones take
+the same code: the JAX package keeps a stacked layout only to `vmap` it.
+Diverse beam search (`diversity_groups > 1`) splits the beam into groups
+that select in turn, each penalised by the tokens the earlier groups'
+live beams chose at this step.
 """
 
 from __future__ import annotations
@@ -41,7 +52,6 @@ from controllable_xgating_torch.infer.greedy import mask_special_tokens
 from controllable_xgating_torch.models.captioner import CaptionerParams, encode_for_inference
 from controllable_xgating_torch.models.decoder import (
     DecodeContext,
-    DecoderParams,
     decode_step,
     init_decoder_state,
 )
@@ -69,9 +79,9 @@ def row_topk_block(x: torch.Tensor, k: int):
 
 
 def beam_search(
-    params: DecoderParams,
-    ctx: DecodeContext,
-    summary: torch.Tensor,  # [B, He]
+    params,
+    ctx,
+    summary,
     beam_size: int,
     max_len: int,
     length_penalty: float = 0.0,
@@ -81,6 +91,9 @@ def beam_search(
     topk_mode: str = "auto",
     return_all: bool = False,
     vocab_q=None,
+    n_members: int = 0,
+    diversity_groups: int = 0,
+    diversity_penalty: float = 0.5,
 ):
     """Returns (tokens [B, max_len], scores [B]) for the best beam, or with
     `return_all=True` (tokens [B, K, max_len], scores [B, K]) best-first,
@@ -88,19 +101,51 @@ def beam_search(
     unless it duplicates a pool row. `early_stop=True` leaves the loop once
     every beam has finished (one host sync per step). `vocab_q` (a
     `QuantVocabProj`) takes every step's vocab projection through the
-    weight-only int8 path; the lanes tail does not take it."""
-    b = summary.shape[0]
-    v = params.w_out.shape[-1]
+    weight-only int8 path; the lanes tail does not take it.
+
+    `params` is a `DecoderParams`, `ctx` a `DecodeContext` and `summary`
+    [B, He]; with `n_members > 0` each is a sequence of that many members'
+    (an ensemble; members may differ in architecture but not in vocab).
+
+    `diversity_groups > 1` is diverse beam search (Vijayakumar et al.,
+    arXiv:1610.02424): the K beams split into G contiguous groups of K/G,
+    row 0 of every group is live at t=0, and group j selects with its
+    candidates penalised by `diversity_penalty` x the count of live beams
+    of groups < j that chose each token at this step. Stored scores stay
+    the raw log-probabilities. Diversity ignores `topk_mode` (it takes the
+    grouped selection within each group); G <= 1 is the plain beam."""
+    groups = int(diversity_groups or 0)
+    if groups > 1:
+        if beam_size % groups:
+            raise ValueError(f"diversity_groups={groups} must divide beam_size={beam_size}")
+        if diversity_penalty < 0.0:
+            raise ValueError("diversity_penalty must be >= 0")
+    ens = int(n_members or 0)
+    if ens and vocab_q is not None:
+        raise ValueError("vocab_q is not supported for ensemble decoding")
+    if ens:
+        members, ctxs, sums = tuple(params), tuple(ctx), tuple(summary)
+        if len(members) != ens:
+            raise ValueError(f"n_members={ens} but {len(members)} heterogeneous members")
+        vs = {p.w_out.shape[-1] for p in members}
+        if len(vs) != 1:
+            raise ValueError(f"heterogeneous ensemble members disagree on vocab: {vs}")
+    else:
+        members, ctxs, sums = (params,), (ctx,), (summary,)
+    b = sums[0].shape[0]
+    v = members[0].w_out.shape[-1]
     k = beam_size
-    dev = summary.device
+    dev = sums[0].device
     if topk_mode == "auto":
-        topk_mode = "lanes" if fused and vocab_q is None else "grouped"
+        topk_mode = "lanes" if fused and vocab_q is None and not ens and groups <= 1 else "grouped"
     if topk_mode not in ("lanes", "grouped", "block", "flat"):
         raise ValueError(f"unknown topk_mode {topk_mode!r}")
-    lanes = topk_mode == "lanes"
+    lanes = topk_mode == "lanes" and groups <= 1  # diversity ignores topk_mode
+    if lanes and ens:
+        raise ValueError('topk_mode="lanes" does not support ensembles')
     if lanes and vocab_q is not None:
         raise ValueError('topk_mode="lanes" does not support vocab_q')
-    if lanes and not lanes_fits(k, params.w_out.shape[0]):
+    if lanes and not lanes_fits(k, members[0].w_out.shape[0]):
         lanes, topk_mode = False, "grouped"
     is_pad = torch.arange(v, device=dev) == PAD
     # a finished row's candidates: the PAD continuation at zero cost
@@ -108,25 +153,31 @@ def beam_search(
     cont_v, cont_i = topk(cont, k)
 
     tile = lambda x: x.repeat_interleave(k, dim=0)
-    ctx_k = DecodeContext(
-        enc_proj=tile(ctx.enc_proj),
-        keys=tile(ctx.keys),
-        frame_mask=None if ctx.frame_mask is None else tile(ctx.frame_mask),
-        psi_g=tile(ctx.psi_g),
-    )
-    h, c = init_decoder_state(params, tile(summary))  # [B*K, Hd]
+    ctx_k = [
+        DecodeContext(
+            enc_proj=tile(cx.enc_proj),
+            keys=tile(cx.keys),
+            frame_mask=None if cx.frame_mask is None else tile(cx.frame_mask),
+            psi_g=tile(cx.psi_g),
+        )
+        for cx in ctxs
+    ]
+    h, c = map(list, zip(*(init_decoder_state(p, tile(s)) for p, s in zip(members, sums))))
 
     tok = torch.full((b, k), BOS, dtype=torch.long, device=dev)
-    cum = torch.where(torch.arange(k, device=dev) == 0, 0.0, NEG_INF).repeat(b, 1)
+    # row 0 live (of every group under diversity), so each group's first
+    # step picks distinct words
+    kg = k // groups if groups > 1 else k
+    cum = torch.where(torch.arange(k, device=dev) % kg == 0, 0.0, NEG_INF).repeat(b, 1)
     finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
     lengths = torch.zeros((b, k), dtype=torch.long, device=dev)
     hist = torch.full((b, k, max_len), PAD, dtype=torch.long, device=dev)
     reg_score = torch.full((b,), NEG_INF, device=dev)
     reg_tokens = torch.full((b, max_len), PAD, dtype=torch.long, device=dev)
     rows = torch.arange(b, device=dev)
-    # the kernels' weight operands, cast once for every step
-    kw = attn_lstm_weights(params) if fused else None
-    w_op = topk_tail_weights(params.w_out) if lanes else None
+    # the kernels' weight operands, cast once for every step (every member's)
+    kw = [attn_lstm_weights(p) if fused else None for p in members]
+    w_op = topk_tail_weights(members[0].w_out) if lanes else None
     if fused and vocab_q is not None:
         vocab_q = with_kernel_operand(vocab_q)
 
@@ -139,29 +190,41 @@ def beam_search(
         if early_stop and bool(finished.all()):
             break
         fin_col = finished.reshape(b * k)[:, None]
+        flat_tok = tok.reshape(b * k)
         if lanes:
             h_out, h_new, c_new, _ = decode_step(
-                params, ctx_k, tok.reshape(b * k), h, c, fused=fused, return_hidden=True,
-                kernel_weights=kw,
+                members[0], ctx_k[0], flat_tok, h[0], c[0], fused=fused, return_hidden=True,
+                kernel_weights=kw[0],
             )
-            top_v, top_i, lse = logits_topk(h_out, params.w_out, params.b_out, k, block_unk, w_op)
+            h_new, c_new = [h_new], [c_new]
+            top_v, top_i, lse = logits_topk(
+                h_out, members[0].w_out, members[0].b_out, k, block_unk, w_op)
             logp_k = top_v - lse[:, None]
             s1_scores = cum.reshape(b * k)[:, None] + torch.where(fin_col, cont_v, logp_k)
             s1_idx = torch.where(fin_col, cont_i, top_i)
         else:
-            logits, h_new, c_new, _ = decode_step(
-                params, ctx_k, tok.reshape(b * k), h, c, fused=fused, kernel_weights=kw,
-                vocab_q=vocab_q,
-            )
-            logp = torch.log_softmax(mask_special_tokens(logits.float(), block_unk), -1)
+            outs = [
+                decode_step(p, cx, flat_tok, hh, cc, fused=fused, kernel_weights=w, vocab_q=vocab_q)
+                for p, cx, hh, cc, w in zip(members, ctx_k, h, c, kw)
+            ]
+            h_new, c_new = [o[1] for o in outs], [o[2] for o in outs]
+            if ens:
+                from controllable_xgating_torch.infer.ensemble import combine_logp
+
+                logp = combine_logp([o[0] for o in outs], block_unk)
+            else:
+                logp = torch.log_softmax(mask_special_tokens(outs[0][0].float(), block_unk), -1)
             logp = torch.where(fin_col, cont, logp)
             cand = cum.reshape(b * k)[:, None] + logp  # [B*K, V]
-            if topk_mode == "flat":
+            if groups > 1:
+                top_scores, beam_idx, new_tok = _diverse_select(
+                    cand.reshape(b, k, v), finished, groups, diversity_penalty)
+            elif topk_mode == "flat":
                 top_scores, top_idx = topk(cand.reshape(b, k * v), k)  # [B, K]
                 beam_idx, new_tok = top_idx // v, top_idx % v
             else:
                 s1_scores, s1_idx = (row_topk_block if topk_mode == "block" else topk)(cand, k)
-        if topk_mode != "flat":
+        if groups <= 1 and topk_mode != "flat":
             # merge the K*K survivors per video
             top_scores, m_idx = topk(s1_scores.reshape(b, k * k), k)  # [B, K]
             beam_idx = m_idx // k
@@ -170,8 +233,10 @@ def beam_search(
         finished_g = torch.gather(finished, 1, beam_idx)
         lengths_g = torch.gather(lengths, 1, beam_idx)
         hist = _gather_rows(hist, beam_idx)
+        # every member's state follows the same reordering
         flat_src = (rows[:, None] * k + beam_idx).reshape(b * k)
-        h, c = h_new[flat_src], c_new[flat_src]
+        h = [x[flat_src] for x in h_new]
+        c = [x[flat_src] for x in c_new]
 
         now_finished = finished_g | (new_tok == EOS)
         emit = torch.where(finished_g, torch.full_like(new_tok, PAD), new_tok)
@@ -211,6 +276,34 @@ def beam_search(
     return best_tokens, best_scores
 
 
+def _diverse_select(cand: torch.Tensor, finished: torch.Tensor, groups: int, penalty: float):
+    """Diverse beam's selection on cand [B, K, V] -> (raw scores, beam
+    rows, tokens), each [B, K]: group j takes the grouped two-stage top-K/G
+    of its rows, penalised by `penalty` x the histogram of tokens that
+    groups < j chose at this step from live (unfinished) rows. Each chosen
+    pair's raw (unpenalised) score is gathered back."""
+    b, k, _ = cand.shape
+    kg = k // groups
+    rows = torch.arange(b, device=cand.device)[:, None].expand(b, kg)
+    pen = torch.zeros((b, cand.shape[2]), dtype=cand.dtype, device=cand.device)
+    scores, beams, toks = [], [], []
+    for j in range(groups):
+        cj = cand[:, j * kg:(j + 1) * kg, :]  # [B, kg, V]
+        sel = cj - penalty * pen[:, None, :] if j else cj
+        s1_scores, s1_idx = topk(sel.reshape(b * kg, -1), kg)  # [B*kg, kg]
+        _, m_idx = topk(s1_scores.reshape(b, kg * kg), kg)  # [B, kg]
+        bj = m_idx // kg  # row within the group
+        tj = torch.gather(s1_idx.reshape(b, kg * kg), 1, m_idx)
+        if j + 1 < groups:
+            # once per choosing beam: two beams on one token count twice
+            live = ~torch.gather(finished[:, j * kg:(j + 1) * kg], 1, bj)
+            pen.index_put_((rows, tj), live.to(pen.dtype), accumulate=True)
+        scores.append(cj[rows, bj, tj])
+        beams.append(j * kg + bj)
+        toks.append(tj)
+    return torch.cat(scores, 1), torch.cat(beams, 1), torch.cat(toks, 1)
+
+
 def make_beam_caption_fn(
     beam_size: int,
     max_pos_len: int,
@@ -221,10 +314,13 @@ def make_beam_caption_fn(
     early_stop: bool = True,
     topk_mode: str = "auto",
     return_all: bool = False,
+    diversity_groups: int = 0,
+    diversity_penalty: float = 0.5,
 ):
     """(params, app, motion, frame_mask=None) -> (tokens [B, L], pos_tags);
     with `return_all=True` -> (tokens [B, K, L], scores [B, K], pos_tags).
-    Inputs are tensors on the parameters' device."""
+    Inputs are tensors on the parameters' device. `diversity_groups > 1`
+    decodes by diverse beam search (see `beam_search`)."""
     from controllable_xgating_torch.ops.dispatch import fused_enabled
 
     fused = fused_enabled(fused)
@@ -238,7 +334,8 @@ def make_beam_caption_fn(
         tokens, scores = beam_search(
             params.decoder, ctx, summary, beam_size, max_len, length_penalty, fused=fused,
             block_unk=block_unk, early_stop=early_stop, topk_mode=topk_mode,
-            return_all=return_all,
+            return_all=return_all, diversity_groups=diversity_groups,
+            diversity_penalty=diversity_penalty,
         )
         if return_all:
             return tokens, scores, tags

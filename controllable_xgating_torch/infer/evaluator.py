@@ -49,8 +49,15 @@ def make_greedy_caption_fn(
     return fn
 
 
+def params_device(params) -> torch.device:
+    """The device of `params`: a `CaptionerParams`, or an ensemble's tuple
+    of members (its first member's)."""
+    member = params[0] if isinstance(params, (tuple, list)) else params
+    return member.decoder.w_out.device
+
+
 def evaluate_split(
-    params: CaptionerParams,
+    params,
     store,
     labels: dict,
     info,
@@ -65,13 +72,16 @@ def evaluate_split(
 
     `store` is any object with `get_batch` and `frame_mask` (see
     data/loader.py); `info` carries `splits`, `video_ids` and `vocab`, as
-    the JAX package's CorpusInfo does. `caption_fn` defaults to greedy."""
+    the JAX package's CorpusInfo does. `params` is what `caption_fn`
+    takes: a `CaptionerParams`, or an ensemble's tuple of members with
+    `infer/ensemble.py::make_ensemble_caption_fn`. `caption_fn` defaults
+    to greedy."""
     if caption_fn is None:
         caption_fn = make_greedy_caption_fn(max_pos_len, max_len)
     indices = np.asarray(info.splits[split], np.int64)
     if len(indices) == 0:
         raise ValueError(f"split {split!r} is empty")
-    device = params.decoder.w_out.device
+    device = params_device(params)
     put = lambda x: None if x is None else torch.as_tensor(x, device=device)
     res: dict[str, list[str]] = {}
     for batch in eval_batches(store, indices, batch_size):
@@ -89,7 +99,7 @@ def evaluate_split(
 
 
 def evaluate_split_nbest(
-    params: CaptionerParams,
+    params,
     store,
     labels: dict,
     info,
@@ -115,7 +125,7 @@ def evaluate_split_nbest(
     indices = np.asarray(info.splits[split], np.int64)
     if len(indices) == 0:
         raise ValueError(f"split {split!r} is empty")
-    device = params.decoder.w_out.device
+    device = params_device(params)
     put = lambda x: None if x is None else torch.as_tensor(x, device=device)
     lists: dict[str, list] = {}
     for batch in eval_batches(store, indices, batch_size):

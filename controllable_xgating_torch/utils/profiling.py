@@ -10,6 +10,9 @@ the plain path:
     frame valid, early stop off so that every call runs all 28 steps; then
     the same two with the weight-only int8 vocab projection (`vocab_q`,
     the entry point of `tools/quant_ab.py`; beam takes the grouped tail);
+    then beam-5 on the grouped tail (no top-K kernel), a two-member
+    ensemble at beam 5 (seeds 0 and 1) and diverse beam 6 in 3 groups,
+    the decode-science paths, which take the grouped selection;
   train: one joint-stage XE step (`make_xe_train_step`) on a batch of 64
     videos x 5 seeded captions of 27 words (no PAD), dropout 0.5, the
     batch already on the card; then one SCST step (`make_scst_train_step`)
@@ -101,11 +104,13 @@ def caption_calls(cfg, dev):
 
     from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
     from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.ensemble import make_ensemble_caption_fn
     from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
     from controllable_xgating_torch.models.captioner import init_captioner
     from controllable_xgating_torch.tools.quant_ab import make_fn
 
     params = init_captioner(cfg, seed=0, device=dev)
+    members = (params, init_captioner(cfg, seed=1, device=dev))
     vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
     rng = np.random.default_rng(0)
     feats = (
@@ -118,6 +123,12 @@ def caption_calls(cfg, dev):
         ("greedy", make_greedy_caption_fn(MAX_LEN, MAX_LEN, early_stop=False), (params, *feats)),
         ("beam5_int8", make_fn(cfg, True, vq), (params, *feats)),
         ("greedy_int8", make_fn(cfg, False, vq), (params, *feats)),
+        ("beam5_grouped", make_beam_caption_fn(K, MAX_LEN, MAX_LEN, early_stop=False,
+                                               topk_mode="grouped"), (params, *feats)),
+        ("ensemble_beam5", make_ensemble_caption_fn(K, MAX_LEN, MAX_LEN, early_stop=False),
+         (members, *feats)),
+        ("diverse_beam6", make_beam_caption_fn(6, MAX_LEN, MAX_LEN, early_stop=False,
+                                               diversity_groups=3), (params, *feats)),
     ]
 
 

@@ -250,12 +250,6 @@ def test_cli_without_a_card_refuses_cuda(fixture, monkeypatch, capsys, main, tmp
 
 
 DEFERRED = [
-    pytest.param("caption", ["--video", "video0", "--ensemble", "a", "b"], "A9", id="caption-ensemble"),
-    pytest.param("eval", ["--ensemble", "a", "b"], "A9", id="eval-ensemble"),
-    pytest.param("caption", ["--video", "video0", "--beam_size", "3", "--eval.diversity_groups", "3"],
-                 "A9", id="caption-diversity"),
-    pytest.param("eval", ["--beam_size", "3", "--eval.diversity_groups", "3"], "A9",
-                 id="eval-diversity"),
     pytest.param("eval", ["--parallel.num_devices", "2"], "A7", id="eval-num_devices"),
     pytest.param("train", ["--parallel.num_devices", "4"], "A7", id="train-num_devices"),
     pytest.param("train", ["--tensorboard", "tb"], "--tensorboard", id="train-tensorboard"),

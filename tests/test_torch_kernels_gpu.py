@@ -881,3 +881,92 @@ def test_scst_baseline_tokens_kernels_match_plain_path(dev, paired):
         loss, aux = scst_loss(params, batch, tables, torch.Generator(device=dev).manual_seed(0), 10,
                               10, fused_baseline=True, paired=paired)
     assert torch.isfinite(loss) and all(torch.isfinite(v) for v in aux.values())
+
+
+def a9_model(dev, seed=3, **over):
+    """A small captioner on the card for the decode-science tests (greedy
+    and beam run all 10 steps: random weights rarely emit EOS)."""
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.utils.config import Config
+
+    cfg = Config().replace_flat({
+        "model.app_dim": 40, "model.motion_dim": 24, "model.hidden_dim": 64,
+        "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
+        "model.vocab_size": 500, "model.pos_vocab_size": 20, "model.num_frames": 6, **over,
+    })
+    return init_captioner(cfg, seed=seed, device=dev)
+
+
+def a9_inputs(dev):
+    gd = torch.Generator(device=dev).manual_seed(4)
+    return torch.randn(8, 6, 40, generator=gd, device=dev), torch.randn(8, 6, 24, generator=gd,
+                                                                          device=dev)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_ensemble_identity_with_the_kernels(dev, policy):
+    """A [p, p] ensemble through the kernels gives the single model's tokens
+    (beam 5 on the grouped tail, and greedy) exactly, and launches K1 and
+    K3 once per member: the members' mean log-prob of identical members
+    is the member's."""
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.ensemble import make_ensemble_caption_fn
+    from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
+
+    p = a9_model(dev)
+    app, mot = a9_inputs(dev)
+    with precision(policy):
+        single = make_beam_caption_fn(5, 8, 10, topk_mode="grouped", return_all=True,
+                                      early_stop=False)(p, app, mot)
+        kernels.reset_launch_counts()
+        ens = make_ensemble_caption_fn(5, 8, 10, return_all=True, early_stop=False)(
+            (p, p), app, mot)
+        counts = kernels.launch_counts()
+        g1 = make_greedy_caption_fn(8, 10)(p, app, mot)[0]
+        g2 = make_ensemble_caption_fn(1, 8, 10)((p, p), app, mot)[0]
+    assert torch.equal(ens[0], single[0]) and torch.equal(ens[2], single[2])
+    torch.testing.assert_close(ens[1], single[1], rtol=1e-6, atol=0.0)
+    assert torch.equal(g1, g2)
+    assert counts["xgate"] == 2 and counts["attn_lstm"] == 2 * 10 and counts["topk_tail"] == 0
+
+
+def test_diverse_beam_kernels_match_plain_path(dev):
+    """Beam 6 in 3 groups, f32: the kernels (K1-K3, no top-K tail) against
+    the plain path; G = 1 gives the plain beam's tokens."""
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+
+    p = a9_model(dev)
+    app, mot = a9_inputs(dev)
+    fn = lambda g: make_beam_caption_fn(6, 8, 10, diversity_groups=g, diversity_penalty=0.5,
+                                        early_stop=False)(p, app, mot)[0]
+    with precision("float32"):
+        kernels.reset_launch_counts()
+        tokens = fn(3)
+        counts = kernels.launch_counts()
+        try:
+            set_fused_kernels(False)
+            ptokens = fn(3)
+        finally:
+            set_fused_kernels(None)
+        assert torch.equal(fn(1), fn(0))
+    assert (tokens == ptokens).all(1).float().mean().item() >= 0.875
+    assert counts["attn_lstm"] == 10 and counts["xgate"] == 1 and counts["topk_tail"] == 0
+
+
+def test_sequence_logprob_matches_the_kernels_nbest_scores(dev):
+    """The n-best of beam 5 through K3 rescored by the plain teacher-forced
+    decoder, f32: the beam's own scores within rtol 1e-4, lengths equal."""
+    from controllable_xgating_torch.data.vocab import PAD
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.score import make_sequence_scorer
+
+    p = a9_model(dev)
+    app, mot = a9_inputs(dev)
+    with precision("float32"):
+        toks, scores, _ = make_beam_caption_fn(5, 8, 10, return_all=True)(p, app, mot)
+        b, k, L = toks.shape
+        rep = lambda x: x.repeat_interleave(k, dim=0)
+        lp, n = make_sequence_scorer(8)(p, rep(app), rep(mot), None, toks.reshape(b * k, L))
+    torch.testing.assert_close(lp.reshape(b, k), scores, rtol=1e-4, atol=0.0)
+    assert torch.equal(n.reshape(b, k), (toks != PAD).sum(-1))
