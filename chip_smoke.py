@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's captioning, quantized-decoding, ensemble and
-diverse-beam, XE-training and SCST paths and its three command-line entry
-points once on one NVIDIA GPU.
+"""Drive the PyTorch port's captioning (its decode loops as replayed CUDA
+graphs and as eager loops), quantized-decoding, ensemble and diverse-beam,
+XE-training and SCST paths and its three command-line entry points once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -37,6 +38,15 @@ Phases, each fatal on failure:
   5. under the f32 policy, the kernel path and the plain path
      (`set_fused_kernels(False)`) must give the same caption for >= 98% of
      the videos, beam and greedy;
+  5b. the decode loops as replayed CUDA graphs (`graphs_phase`; every
+     decode loop of the script replays them, as on any CUDA call, unless
+     `set_decode_graphs(False)`): beam-5, greedy, both with `vocab_q`, an
+     ensemble's beam-5 (M = 2), diverse beam 6 / G 3, and the beam-5,
+     greedy and POS loops alone, each graphed against the eager loop:
+     outputs equal under f32 and bf16, launches per call equal; under bf16
+     the wall (median of 5 in turns), device ms, busy share and
+     captions/s of both, the capture seconds and pool MiB of each key and
+     the chunks replayed per call;
   6. the quantized decode path (`vocab_q`): the int8 vocab projection
      kernel (K7), on its K-major operand made once, against its plain
      version at the greedy [256, 512] and beam [1280, 512] shapes -> 10000
@@ -810,6 +820,16 @@ def check_xent(dev, n: int, v: int, smoothing: float = 0.1) -> dict:
         print(f"kernel {name} [float32, {n}x{v}]: max_abs_err {e:.3e}  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms  device {DEVICE_US[name]:.2f} us per launch  "
               f"F.cross_entropy {lib_ms:.4f} ms")
+    # each launch's own device time (a sum over launches can drop events):
+    # the median of 10, with the number of launches the profiler kept
+    from controllable_xgating_torch.utils.profiling import kernel_launch_us
+
+    for name, fn in (("xent_fwd", lambda: xent_fwd_kernel(x, t)),
+                     ("xent_bwd", lambda: xent_bwd_kernel(x, t, lse, *cot))):
+        for kern, us in kernel_launch_us(fn, calls=10).items():
+            print(f"kernel {name} [float32, {n}x{v}]: {kern} device us per launch, median of "
+                  f"{len(us)} launches seen of 10: {sorted(us)[len(us) // 2]:.2f} "
+                  f"(min {min(us):.2f}, max {max(us):.2f}); {CARD}")
     return out
 
 
@@ -1463,6 +1483,142 @@ def int8_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
     return k7[B * K]
 
 
+
+
+def graphs_phase(params, cfg, store, dev) -> dict:
+    """The decode loops as replayed CUDA graphs (`infer/graphs.py`) against
+    the eager loop (`set_decode_graphs(False)`), kernels on, over the 256
+    videos: beam-5 (lanes tail), greedy, both with `vocab_q` (the entry
+    point of `tools/quant_ab.py`), an ensemble's beam-5 (seeds 0 and 1),
+    diverse beam 6 / G 3, each a whole caption call (encoder, POS rollout,
+    decode); then the loops alone on one encoding: beam-5's and greedy's
+    decode loop and the POS rollout on the encoder's summary. For each:
+    tokens (and tags) equal under f32 and bf16 (psi within rtol 1e-6),
+    launches per call equal (bf16), then under bf16 the wall of 5 calls in
+    turns after a warm-up (median), the device time of one call (the
+    profiler's, where it sees the replayed kernels, else the CUDA-event
+    span), busy share and captions/s, the capture seconds and pool bytes
+    of the path's keys and the chunks replayed per call. Returns the
+    printed rows."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.infer.beam import beam_search, make_beam_caption_fn
+    from controllable_xgating_torch.infer.ensemble import make_ensemble_caption_fn
+    from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
+    from controllable_xgating_torch.infer.greedy import greedy_decode
+    from controllable_xgating_torch.models.captioner import encode_for_inference, init_captioner
+    from controllable_xgating_torch.models.pos_generator import pos_greedy_generate
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_decode_graphs
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.tools.quant_ab import make_fn
+    from controllable_xgating_torch.utils.profiling import call_device_ms
+
+    app, mot = (torch.as_tensor(x, device=dev) for x in store.get_batch(np.arange(B)))
+    mask = torch.as_tensor(store.frame_mask(np.arange(B)), device=dev)
+    members = (params, init_captioner(cfg, seed=1, device=dev))
+    vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
+
+    def fns():
+        """Each path's call, built now under the current policy (the
+        factories read the kernel setting when they build; the loops alone
+        run on an encoding made now)."""
+        with torch.inference_mode():
+            ctx, summary, _ = encode_for_inference(params, app, mot, mask, max_pos_len=MAX_LEN,
+                                                   fused=True)
+        loop = torch.inference_mode()(lambda beam: beam_search(
+            params.decoder, ctx, summary, K, MAX_LEN, fused=True, early_stop=True) if beam else
+            (greedy_decode(params.decoder, ctx, summary, MAX_LEN, fused=True, early_stop=True),))
+        pos_rollout = torch.inference_mode()(lambda: pos_greedy_generate(
+            params.pos, summary, MAX_LEN, early_stop=True, fused=True))
+        beam5, greedy = make_beam_caption_fn(K, MAX_LEN, MAX_LEN), \
+            make_greedy_caption_fn(MAX_LEN, MAX_LEN)
+        beam_q, greedy_q = make_fn(cfg, True, vq), make_fn(cfg, False, vq)
+        ens = make_ensemble_caption_fn(K, MAX_LEN, MAX_LEN)
+        diverse = make_beam_caption_fn(6, MAX_LEN, MAX_LEN, diversity_groups=3)
+        return {
+            "beam-5": lambda: beam5(params, app, mot, mask),
+            "greedy": lambda: greedy(params, app, mot, mask),
+            "beam-5-int8": lambda: beam_q(params, app, mot, mask),
+            "greedy-int8": lambda: greedy_q(params, app, mot, mask),
+            "ensemble-beam-5": lambda: ens(members, app, mot, mask),
+            "diverse-beam-6": lambda: diverse(params, app, mot, mask),
+            "beam-5-loop": lambda: loop(True),
+            "greedy-loop": lambda: loop(False),
+            "pos-rollout": pos_rollout,
+        }
+
+    def run(fn, on: bool):
+        set_decode_graphs(None if on else False)
+        try:
+            out = fn()
+        finally:
+            set_decode_graphs(None)
+        torch.cuda.synchronize()
+        return out
+
+    rows = {}
+    for policy in ("float32", "bfloat16"):
+        with precision(policy):
+            for label, fn in fns().items():
+                graphs.clear()  # the keys cached next are this path's
+                eager, graphed = run(fn, False), run(fn, True)
+                for a, b in zip(graphed, eager):
+                    ok = torch.allclose(a, b, rtol=1e-6, atol=0.0) if a.is_floating_point() \
+                        else torch.equal(a, b)
+                    if not ok:
+                        fail(f"graphs {label} [{policy}]: the graphed loop's outputs differ from "
+                             f"the eager loop's")
+                print(f"graphs {label} [{policy}]: graphed outputs equal the eager loop's "
+                      f"(chunks replayed {graphs.LAST['chunks']} of {graphs.LAST['of']})")
+                if policy == "float32":
+                    continue
+                counts = []
+                for on in (False, True):
+                    kernels.reset_launch_counts()
+                    run(fn, on)
+                    counts.append(kernels.launch_counts())
+                if counts[0] != counts[1]:
+                    fail(f"graphs {label}: launches per call, eager {counts[0]}, "
+                         f"graphed {counts[1]}")
+                new = graphs.cache_info()
+                walls = {"graphed": [], "eager": []}
+                run(fn, True), run(fn, False)
+                for i in range(5):
+                    for on in ((True, False) if i % 2 == 0 else (False, True)):
+                        t = time.perf_counter()
+                        run(fn, on)
+                        walls["graphed" if on else "eager"].append(
+                            (time.perf_counter() - t) * 1e3)
+                row = {"launches": {n: c for n, c in counts[1].items() if c},
+                       "chunks": [graphs.LAST["chunks"], graphs.LAST["of"]],
+                       "keys": [{"kind": e["kind"], "capture_s": round(e["capture_s"], 3),
+                                 "pool_mib": round(e["pool_bytes"] / 2 ** 20, 1)} for e in new]}
+                for name, on in (("graphed", True), ("eager", False)):
+                    d = call_device_ms(lambda: run(fn, on))
+                    wall = float(np.median(walls[name]))
+                    dev_ms = d["profiler"] if d["kernels_seen"] else d["events"]
+                    row[name] = {
+                        "wall_ms": wall, "walls_ms": walls[name], "device_ms": dev_ms,
+                        "device_from": "profiler" if d["kernels_seen"] else "events",
+                        "profiler_ms": d["profiler"], "kernels_seen": d["kernels_seen"],
+                        "events_ms": d["events"], "busy": dev_ms / wall,
+                        "captions_s": B / wall * 1e3}
+                rows[label] = row
+                g, e = row["graphed"], row["eager"]
+                print(f"graphs {label} [bfloat16, {B} videos, {CARD}]: wall {g['wall_ms']:.2f} ms "
+                      f"graphed vs {e['wall_ms']:.2f} eager (median of 5 in turns); device "
+                      f"{g['device_ms']:.2f} vs {e['device_ms']:.2f} ms ({g['device_from']} / "
+                      f"{e['device_from']}); busy {g['busy']:.3f} vs {e['busy']:.3f}; "
+                      f"{'rows' if label == 'pos-rollout' else 'captions'}/s "
+                      f"{g['captions_s']:.1f} vs {e['captions_s']:.1f}; keys {row['keys']}; "
+                      f"chunks replayed {row['chunks'][0]} of {row['chunks'][1]}")
+    return rows
+
+
 def tails_phase(params, dev) -> None:
     """One beam-5 call per candidate tail that forms the full log-softmax
     (grouped, flat, block), plain path, bf16 policy, unquantized: the
@@ -1818,6 +1974,10 @@ def main() -> None:
             if policy == "float32" and agree < AGREE_MIN:
                 fail(f"{label} f32 caption agreement {agree:.4f} < {AGREE_MIN}")
 
+    # the decode loops as replayed CUDA graphs against the eager loop
+    graph_rows = graphs_phase(params, cfg, store, dev)
+    set_compute_dtype("bfloat16")
+
     # the quantized decode path and beam's full log-softmax tails
     k7 = int8_phase(params, cfg, store, labels, info, dev, counts)
     tails_phase(params, dev)
@@ -1877,6 +2037,7 @@ def main() -> None:
     print("scst phase launches in its timed steps: " + json.dumps(scst))
     print("a9 phase (host clock /s; agreement): " + json.dumps(a9))
     print("cli phase (host clock, s and /s): " + json.dumps(cli))
+    print("graphs phase (graphed vs eager, bf16): " + json.dumps(graph_rows))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

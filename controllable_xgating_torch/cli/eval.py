@@ -2,7 +2,9 @@
 score with the metric suite, print the metrics JSON and write it with the
 captions to `<checkpoint_dir>/eval_<split>.json` (or `--out`).
 
-Counterpart of `controllable_xgating_tpu/cli/eval.py`, on one device.
+Counterpart of `controllable_xgating_tpu/cli/eval.py`, on one device:
+`parallel.num_devices > 1` decodes there too, as the JAX CLI does where
+the devices are short.
 
   python -m controllable_xgating_torch.cli.eval --data_dir D \\
       --checkpoint_dir checkpoints/joint --split test --beam_size 5
@@ -71,6 +73,10 @@ def main(argv=None) -> None:
 
 def _eval(args, cfg, beam: int, device) -> None:
     info, labels, store, cfg = load_corpus(args.data_dir, cfg)
+    if cfg.parallel.num_devices > 1:
+        # as the JAX CLI on a smaller machine: a training config's device
+        # count never stops an eval (decoding is row-independent)
+        log.info("parallel.num_devices=%d: decoding on one device", cfg.parallel.num_devices)
     diversity = dict(diversity_groups=cfg.eval.diversity_groups,
                      diversity_penalty=cfg.eval.diversity_penalty)
     if args.ensemble:

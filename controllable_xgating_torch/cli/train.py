@@ -23,7 +23,6 @@ fresh optimizer.
 
 from __future__ import annotations
 
-import argparse
 import os
 
 import numpy as np
@@ -31,9 +30,9 @@ import numpy as np
 from controllable_xgating_torch.cli.common import (
     apply_runtime_flags,
     base_parser,
-    die,
     load_corpus,
     parse_with_overrides,
+    refuse_data_parallel,
     restore_or_init,
     restore_params,
 )
@@ -58,12 +57,11 @@ def main(argv=None) -> None:
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--init_from", default=None,
                    help="checkpoint dir to initialize params from (its 'best')")
-    # accepted so that it can be refused by name
-    p.add_argument("--tensorboard", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tensorboard", default=None, metavar="LOGDIR",
+                   help="also mirror scalars to a TensorBoard event file")
     args, cfg = parse_with_overrides(p, argv)
     epochs = args.epochs or (cfg.train.pos_epochs if args.stage == "pos" else cfg.train.epochs)
-    if args.tensorboard:
-        die("--tensorboard is not ported: the port logs scalars to train_log.jsonl only")
+    refuse_data_parallel(cfg)
     device, dtype = apply_runtime_flags(args, cfg)
     with precision(dtype):
         _train(args, cfg, epochs, device)
@@ -91,7 +89,8 @@ def _train(args, cfg, epochs: int, device) -> None:
     step_fn = scst_step() if args.stage == "scst" else make_xe_train_step(tx, cfg, stage=args.stage)
     infos_extra = {"stage": args.stage, "config": cfg.to_dict()}
     switch = cfg.train.scst_start_epoch
-    with JsonlLogger(os.path.join(ckpt_dir, "train_log.jsonl"), echo=False) as jsonl:
+    with JsonlLogger(os.path.join(ckpt_dir, "train_log.jsonl"), echo=False,
+                     tensorboard_dir=args.tensorboard) as jsonl:
         loop = lambda state, step_fn, epochs, infos_extra: train_loop(
             state, step_fn, train_it, store, labels, info, cfg, epochs=epochs, ckpt=mgr,
             jsonl=jsonl, infos_extra=infos_extra)

@@ -26,6 +26,7 @@ from typing import Optional, Sequence
 import torch
 
 from controllable_xgating_torch.data.vocab import BOS, EOS, PAD
+from controllable_xgating_torch.infer import graphs as decode_graphs
 from controllable_xgating_torch.infer.beam import beam_search
 from controllable_xgating_torch.infer.greedy import mask_special_tokens
 from controllable_xgating_torch.models.captioner import encode_for_inference
@@ -75,6 +76,65 @@ def combine_logp(logits_m: Sequence[torch.Tensor], block_unk: bool = False) -> t
     return total / len(logits_m)
 
 
+class EnsembleGreedyLoop(decode_graphs.StepLoop):
+    """The ensemble's greedy rollout split as the reference's scan
+    (`infer/graphs.py`): inputs every member's context and summary and
+    the decoder-step kernel's weight operands (made from the parameters on
+    every call), carry (every member's h and c, the shared last token, the
+    alive rows, the tokens), one step of every member and the argmax of
+    their mean log-probs, finish = the tokens."""
+
+    kind = "ensemble_greedy"
+
+    def __init__(self, params_m, ctx_m, summary_m, max_len: int, block_unk: bool,
+                 fused: Optional[bool]):
+        self.members, self.ctxs, self.sums = tuple(params_m), tuple(ctx_m), tuple(summary_m)
+        self.max_len, self.block_unk, self.fused = max_len, block_unk, bool(fused)
+        self.device = self.sums[0].device
+
+    def key_options(self) -> tuple:
+        return (self.block_unk, self.fused)
+
+    def modules(self) -> list:
+        return list(self.members)
+
+    def key_tensors(self) -> list:
+        return [x for cx, s in zip(self.ctxs, self.sums) for x in (*cx, s)]
+
+    def prepare(self) -> dict:
+        return dict(ctx=list(self.ctxs), summary=list(self.sums),
+                    kw=[attn_lstm_weights(p) if self.fused else None for p in self.members])
+
+    def init(self) -> dict:
+        b, dev = self.sums[0].shape[0], self.device
+        h, c = map(list, zip(*(init_decoder_state(p, s)
+                               for p, s in zip(self.members, self.inp["summary"]))))
+        return dict(
+            h=h, c=c, tok=torch.full((b,), BOS, dtype=torch.long, device=dev),
+            alive=torch.ones((b,), dtype=torch.bool, device=dev),
+            tokens=torch.full((b, self.max_len), PAD, dtype=torch.long, device=dev),
+        )
+
+    def step(self, carry: dict, t: int) -> None:
+        inp, tok, alive = self.inp, carry["tok"], carry["alive"]
+        outs = [
+            decode_step(p, cx, tok, hh, cc, fused=self.fused, kernel_weights=w)
+            for p, cx, hh, cc, w in zip(self.members, inp["ctx"], carry["h"], carry["c"],
+                                        inp["kw"])
+        ]
+        nxt = torch.argmax(combine_logp([o[0] for o in outs], self.block_unk), dim=-1)
+        nxt = torch.where(alive, nxt, torch.full_like(nxt, PAD))
+        carry.update(h=[o[1] for o in outs], c=[o[2] for o in outs], tok=nxt,
+                     alive=alive & (nxt != EOS))
+        carry["tokens"][:, t] = nxt
+
+    def done(self, carry: dict) -> torch.Tensor:
+        return ~carry["alive"].any()
+
+    def finish(self, carry: dict) -> torch.Tensor:
+        return carry["tokens"]
+
+
 def ensemble_greedy_decode(
     params_m,
     ctx_m,
@@ -83,6 +143,7 @@ def ensemble_greedy_decode(
     block_unk: bool = False,
     early_stop: bool = False,
     fused: Optional[bool] = None,
+    graphs: Optional[bool] = None,
 ) -> torch.Tensor:
     """Greedy argmax over the members' mean log-probs -> tokens [B, L].
 
@@ -90,28 +151,10 @@ def ensemble_greedy_decode(
     `DecoderParams`, `DecodeContext` and summaries [B, He]. Each member
     advances its own LSTM state on the shared chosen token; `fused=True`
     takes each member's steps through the decoder-step kernel on weights
-    made once. `early_stop=True` leaves once every row has emitted EOS."""
-    b = summary_m[0].shape[0]
-    dev = summary_m[0].device
-    h, c = map(list, zip(*(init_decoder_state(p, s) for p, s in zip(params_m, summary_m))))
-    kw = [attn_lstm_weights(p) if fused else None for p in params_m]
-    tok = torch.full((b,), BOS, dtype=torch.long, device=dev)
-    alive = torch.ones((b,), dtype=torch.bool, device=dev)
-    tokens = torch.full((b, max_len), PAD, dtype=torch.long, device=dev)
-    for t in range(max_len):
-        if early_stop and not bool(alive.any()):
-            break
-        outs = [
-            decode_step(p, cx, tok, hh, cc, fused=fused, kernel_weights=w)
-            for p, cx, hh, cc, w in zip(params_m, ctx_m, h, c, kw)
-        ]
-        h, c = [o[1] for o in outs], [o[2] for o in outs]
-        nxt = torch.argmax(combine_logp([o[0] for o in outs], block_unk), dim=-1)
-        nxt = torch.where(alive, nxt, torch.full_like(nxt, PAD))
-        alive = alive & (nxt != EOS)
-        tokens[:, t] = nxt
-        tok = nxt
-    return tokens
+    made once a call. `early_stop=True` leaves once every row has emitted
+    EOS. `graphs` overrides `set_decode_graphs` (see `infer/graphs.py`)."""
+    loop = EnsembleGreedyLoop(params_m, ctx_m, summary_m, max_len, block_unk, fused)
+    return decode_graphs.run(loop, max_len, early_stop, graphs)
 
 
 # one code path serves members of one architecture and of several

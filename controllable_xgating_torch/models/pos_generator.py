@@ -17,6 +17,8 @@ import torch
 from torch import nn
 
 from controllable_xgating_torch.data.vocab import BOS, EOS, PAD
+from controllable_xgating_torch.infer.graphs import StepLoop
+from controllable_xgating_torch.infer.graphs import run as run_loop
 from controllable_xgating_torch.ops.lstm import LSTMWeights, init_lstm, lstm_cell_pre
 from controllable_xgating_torch.ops.params import normal, param, uniform_fan_in
 from controllable_xgating_torch.ops.precision import mm
@@ -109,52 +111,97 @@ def psi_from_tags(params: PosGeneratorParams, summary: torch.Tensor, pos_tags: t
     return pos_forward(params, summary, pos_tags)[1]
 
 
+class PosRolloutLoop(StepLoop):
+    """The greedy POS rollout split as the reference's scan
+    (`infer/graphs.py`): inputs summary and s_gates, carry (h, c, the last
+    tag, the alive rows, tags, hidden states and the step mask), one
+    argmax step, finish = (tags, psi). On the kernel path the cell is a
+    `PosLstmRollout`, made at the first `init` and `reset` at every later
+    one (its operands made again from the parameters, its buffers and TMA
+    descriptors kept)."""
+
+    kind = "pos"
+
+    def __init__(self, params: PosGeneratorParams, summary: torch.Tensor, max_len: int,
+                 fused: Optional[bool]):
+        self.params, self.summary, self.max_len = params, summary, max_len
+        self.fused = bool(fused)
+        self.device = summary.device
+        self.cell = None
+
+    def key_options(self) -> tuple:
+        return (self.fused,)
+
+    def modules(self) -> list:
+        return [self.params]
+
+    def key_tensors(self) -> list:
+        return [self.summary]
+
+    def prepare(self) -> dict:
+        return dict(summary=self.summary, s_gates=_summary_gates(self.params, self.summary))
+
+    def init(self) -> dict:
+        summary, s_gates = self.inp["summary"], self.inp["s_gates"]
+        b, dev = summary.shape[0], summary.device
+        h, c = _init_state(self.params, summary)
+        if self.fused:
+            from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout
+
+            if self.cell is None:
+                self.cell = PosLstmRollout(self.params, h, s_gates)  # the kernel's operands
+            else:
+                self.cell.reset(h, s_gates)
+        return dict(
+            h=h, c=c, tok=torch.full((b,), BOS, dtype=torch.long, device=dev),
+            alive=torch.ones((b,), dtype=torch.bool, device=dev),
+            tags=torch.full((b, self.max_len), PAD, dtype=torch.long, device=dev),
+            hs=summary.new_zeros((b, self.max_len, self.params.lstm.hidden_dim)),
+            step_mask=torch.zeros((b, self.max_len), dtype=torch.bool, device=dev),
+        )
+
+    def step(self, carry: dict, t: int) -> None:
+        p, alive, tok = self.params, carry["alive"], carry["tok"]
+        dt = self.inp["summary"].dtype
+        carry["step_mask"][:, t] = alive
+        if self.fused:
+            h, c = self.cell.step(carry["c"], tok=tok, h=carry["h"])
+            h, c = h.to(dt), c.to(dt)
+        else:
+            e = p.embed[tok]
+            h, c = lstm_cell_pre(p.lstm, _emb_gates(p, e) + self.inp["s_gates"], carry["h"],
+                                 carry["c"])
+        logits = mm(h, p.w_out) + p.b_out.float()
+        logits[:, PAD] = -1e30  # never training targets, never outputs
+        logits[:, BOS] = -1e30
+        nxt = torch.argmax(logits, dim=-1)
+        nxt = torch.where(alive, nxt, torch.full_like(nxt, PAD))
+        carry.update(h=h, c=c, tok=nxt, alive=alive & (nxt != EOS))
+        carry["tags"][:, t] = nxt
+        carry["hs"][:, t] = h
+
+    def done(self, carry: dict) -> torch.Tensor:
+        return ~carry["alive"].any()
+
+    def finish(self, carry: dict):
+        return carry["tags"], _pool_psi(self.params, carry["hs"], carry["step_mask"])
+
+
 def pos_greedy_generate(
     params: PosGeneratorParams,
     summary: torch.Tensor,  # [B, He]
     max_len: int,
     early_stop: bool = False,
     fused: Optional[bool] = None,
+    graphs: Optional[bool] = None,
 ):
     """Greedy rollout. Returns (tags [B, max_len] int64, psi [B, P]).
 
     tags exclude BOS; rows stop contributing to psi after EOS.
-    `early_stop=True` leaves the loop once every row has emitted EOS (one
-    host sync per step). `fused=True` routes the cell through the POS LSTM
-    kernel (`PosLstmRollout`: operands made once, one gather and one
-    launch a step)."""
-    b = summary.shape[0]
-    dev = summary.device
-    h, c = _init_state(params, summary)
-    tok = torch.full((b,), BOS, dtype=torch.long, device=dev)
-    alive = torch.ones((b,), dtype=torch.bool, device=dev)
-    hidden = params.lstm.hidden_dim
-    s_gates = _summary_gates(params, summary)
-    if fused:
-        from controllable_xgating_torch.ops.kernels.pos_lstm import PosLstmRollout
-
-        cell = PosLstmRollout(params, h, s_gates)  # the kernel's operands, made once
-
-    tags = torch.full((b, max_len), PAD, dtype=torch.long, device=dev)
-    hs = summary.new_zeros((b, max_len, hidden))
-    step_mask = torch.zeros((b, max_len), dtype=torch.bool, device=dev)
-    for t in range(max_len):
-        if early_stop and not bool(alive.any()):
-            break
-        step_mask[:, t] = alive
-        if fused:
-            h, c = cell.step(c, tok=tok)
-            h, c = h.to(summary.dtype), c.to(summary.dtype)
-        else:
-            e = params.embed[tok]
-            h, c = lstm_cell_pre(params.lstm, _emb_gates(params, e) + s_gates, h, c)
-        logits = mm(h, params.w_out) + params.b_out.float()
-        logits[:, PAD] = -1e30  # never training targets, never outputs
-        logits[:, BOS] = -1e30
-        nxt = torch.argmax(logits, dim=-1)
-        nxt = torch.where(alive, nxt, torch.full_like(nxt, PAD))
-        alive = alive & (nxt != EOS)
-        tok = nxt
-        tags[:, t] = nxt
-        hs[:, t] = h
-    return tags, _pool_psi(params, hs, step_mask)
+    `early_stop=True` leaves the loop once every row has emitted EOS.
+    `fused=True` routes the cell through the POS LSTM kernel
+    (`PosLstmRollout`: operands made once a call, one gather and one
+    launch a step). `graphs` overrides `set_decode_graphs` (None = auto:
+    replayed CUDA graphs for CUDA tensors unless autograd records, the
+    eager loop otherwise; see `infer/graphs.py`)."""
+    return run_loop(PosRolloutLoop(params, summary, max_len, fused), max_len, early_stop, graphs)

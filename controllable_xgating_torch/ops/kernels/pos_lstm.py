@@ -96,7 +96,7 @@ class PosLstmRollout:
         self.w = pos_lstm_weights(p) if weights is None else weights
         self.h = h
         self.dev = h.device
-        self.s_gates = s_gates.to(device=self.dev, dtype=torch.float32).contiguous()
+        self.s_gates = s_gates.to(device=self.dev, dtype=torch.float32).clone()
         self.rows, self.hd = h.shape
         self.e_dim = p.embed.shape[1]
         self.bf16 = self.dev.type == "cuda" and compute_dtype() == torch.bfloat16
@@ -122,10 +122,35 @@ class PosLstmRollout:
                                         self.hb[1].data_ptr(), w_pack, b, self.e_dim, hd)
         build.raise_on_error(rc, "pos_lstm (TMA descriptors)")
 
-    def step(self, c: torch.Tensor, tok: torch.Tensor):
+    def reset(self, h: torch.Tensor, s_gates: torch.Tensor) -> None:
+        """Start another rollout from h [B, H] with s_gates [B, 4H] on this
+        rollout's own buffers, in place, so that the TMA descriptors (which
+        hold the addresses of e, hb and the packed weight) stay valid: the
+        weight operands are made again from the parameters (which may have
+        changed in place), s_gates and, under the bf16 policy, s_gates + b,
+        the bf16 tag table and hb[0] are refreshed, and the ping-pong starts
+        again from hb[0]."""
+        for dst, src in zip(self.w, pos_lstm_weights(self.p)):
+            if dst is not None:
+                dst.copy_(src)
+        self.h = h
+        self.s_gates.copy_(s_gates)
+        if not self.bf16 or self.rows == 0:
+            return
+        self.sgb.copy_(pack_pos_addend(self.s_gates, self.w.b))
+        self.table[:, :self.e_dim].copy_(self.p.embed)
+        self.hb[0, :, :self.hd].copy_(h)
+        self.cur = 0
+
+    def step(self, c: torch.Tensor, tok: torch.Tensor, h: Optional[torch.Tensor] = None):
         """One step on the tags `tok` [B] (their embedding gathered here);
-        c [B, H] f32. Returns (h', c') in f32."""
+        c [B, H] f32. Returns (h', c') in f32. `h` is the state to step
+        from where it is read in f32 (the plain version, the f32 policy's
+        kernel), by default the last step's h' (kept here); the bf16
+        kernel keeps its own bf16 copy in hb."""
         p, dev, f32 = self.p, self.dev, torch.float32
+        if h is not None:
+            self.h = h
         if dev.type == "cpu":
             self.h, c_new = pos_lstm_step_plain(p, p.embed[tok], self.s_gates, self.h, c)
             return self.h, c_new

@@ -19,12 +19,18 @@ the plain path:
     of each realization on 64 videos of the same features, with reward
     tables over 10000 videos x 20 seeded captions of 5-25 words, df over
     6513 (MSR-VTT's caption scale).
-For each, one warm-up call, one call timed on the host clock (wall), then
-one call under `torch.profiler`, which gives the device time (kernels,
-copies and sets on the card), its ratio to the wall time (the device busy
-share), the copies and casts (`aten::copy_`) with their device time, and
-the top ops by device time. The Chrome traces go to DIR (default
-`chiprun_out/`).
+Each caption call runs twice: with its decode loops as replayed CUDA
+graphs (the default on the card, `infer/graphs.py`), then as eager loops
+(`set_decode_graphs(False)`, tagged `_eager`). For each, one warm-up
+call, one call timed on the host clock (wall), then one call under
+`torch.profiler`, which gives the device time (kernels, copies and sets
+on the card; a replayed graph's kernels count only where the profiler
+traces graph nodes, so the count of the port's kernels it saw is
+printed), its ratio to the wall time (the device busy share), the copies
+and casts (`aten::copy_`) with their device time, and the top ops by
+device time; then the CUDA-event span of one call (from before its first
+launch to after its last, idle gaps included). The Chrome traces go to
+DIR.
 
 This module imports nothing at import time beyond torch; it runs only
 where `torch.cuda.is_available()`.
@@ -72,11 +78,42 @@ def device_time_ms(key_averages) -> float:
     ) / 1e3
 
 
-def kernel_device_split(fn, calls: int = 10) -> dict:
-    """Device microseconds per call of `fn` in each of the port's own CUDA
-    kernels (namespace `cxg`, so not the casts or copies a wrapper makes),
-    by kernel name, over `calls` calls under `torch.profiler` after one
-    warm-up."""
+def call_device_ms(fn, args=()) -> dict:
+    """One call of `fn(*args)` on the card, after a warm-up, read two ways:
+    "profiler", the device time of the kernels, copies and sets in its
+    profile (`device_time_ms`), with "kernels_seen", the launches of the
+    port's own kernels the profile holds (the kernels of a replayed CUDA
+    graph appear only where the profiler traces graph nodes); and
+    "events", the span between CUDA events recorded on the current stream
+    before and after the call, which also counts the time the card waited
+    for the host between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    events = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    seen = sum(e.count for e in ka if e.device_type == DeviceType.CUDA and "cxg::" in e.key)
+    return {"profiler": device_time_ms(ka), "kernels_seen": seen, "events": events}
+
+
+def kernel_launch_us(fn, calls: int = 10) -> dict:
+    """Device microseconds of every launch of the port's own CUDA kernels
+    (namespace `cxg`, so not the casts or copies a wrapper makes) in
+    `calls` calls of `fn` under `torch.profiler`, after one warm-up, by
+    kernel name: one entry per kernel event the profiler kept. The
+    profiler may keep fewer events than there were launches (8 of 10 on
+    the card for the cross-entropy kernels), so a sum over them divided by
+    `calls` under-reads."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,9 +123,21 @@ def kernel_device_split(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0].replace("void ", ""): e.self_device_time_total / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "cxg::" in e.key}
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "cxg::" in e.name:
+            out.setdefault(e.name.split("(")[0].replace("void ", ""), []).append(
+                e.time_range.elapsed_us())
+    return out
+
+
+def kernel_device_split(fn, calls: int = 10) -> dict:
+    """Device microseconds per call of `fn` in each of the port's own CUDA
+    kernels, by kernel name: the median launch of `kernel_launch_us` times
+    the launches a call makes (the events kept over `calls`, rounded, at
+    least 1)."""
+    return {name: sorted(us)[len(us) // 2] * max(1, round(len(us) / calls))
+            for name, us in kernel_launch_us(fn, calls).items()}
 
 
 def kernel_device_us(fn, calls: int = 10) -> float:
@@ -182,7 +231,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("profiling: needs a CUDA device")
 
-    from controllable_xgating_torch.ops.dispatch import set_fused_kernels
+    from controllable_xgating_torch.ops.dispatch import set_decode_graphs, set_fused_kernels
     from controllable_xgating_torch.ops.precision import precision
     from controllable_xgating_torch.utils.config import load_config
 
@@ -195,13 +244,20 @@ def main(argv=None) -> None:
         try:
             for fused in (None, False):
                 set_fused_kernels(fused)
-                for name, fn, fn_args in caption_calls(cfg, dev) + train_calls(cfg, dev):
+                calls = [(n, fn, a, g) for n, fn, a in caption_calls(cfg, dev)
+                         for g in (None, False)]
+                calls += [(n, fn, a, None) for n, fn, a in train_calls(cfg, dev)]
+                for name, fn, fn_args, graphs_on in calls:
+                    set_decode_graphs(graphs_on)
                     wall, ka, prof = profile_call(fn, fn_args)
+                    span = call_device_ms(fn, fn_args)
                     device_ms = device_time_ms(ka)
                     copies = [e for e in ka if e.key == "aten::copy_"]
-                    tag = f"{name}_{'kernels' if fused is None else 'plain'}"
-                    print(f"== {tag}: wall {wall:.2f} ms, device time {device_ms:.2f} ms, "
-                          f"device busy share ~{device_ms / wall:.3f}, "
+                    tag = f"{name}_{'kernels' if fused is None else 'plain'}" + \
+                        ("_eager" if graphs_on is False else "")
+                    print(f"== {tag}: wall {wall:.2f} ms, device time {device_ms:.2f} ms "
+                          f"(port kernels seen {span['kernels_seen']}), CUDA-event span "
+                          f"{span['events']:.2f} ms, device busy share ~{device_ms / wall:.3f}, "
                           f"aten::copy_ {sum(e.count for e in copies)} calls "
                           f"{sum(e.self_device_time_total for e in copies) / 1e3:.2f} ms")
                     print(ka.table(sort_by="self_device_time_total", row_limit=14,
@@ -209,6 +265,7 @@ def main(argv=None) -> None:
                     prof.export_chrome_trace(os.path.join(args.out, f"trace_{tag}.json"))
         finally:
             set_fused_kernels(None)
+            set_decode_graphs(None)
 
 
 if __name__ == "__main__":

@@ -250,9 +250,7 @@ def test_cli_without_a_card_refuses_cuda(fixture, monkeypatch, capsys, main, tmp
 
 
 DEFERRED = [
-    pytest.param("eval", ["--parallel.num_devices", "2"], "A7", id="eval-num_devices"),
     pytest.param("train", ["--parallel.num_devices", "4"], "A7", id="train-num_devices"),
-    pytest.param("train", ["--tensorboard", "tb"], "--tensorboard", id="train-tensorboard"),
     pytest.param("caption", ["--video", "video0", "--profile", "prof"], "A10", id="caption-profile"),
     pytest.param("train", ["--debug_nans"], "A10", id="train-debug_nans"),
 ]
@@ -269,6 +267,94 @@ def test_cli_refuses_what_is_not_ported(fixture, capsys, tmp_path, cli, args, na
         main(["--data_dir", data, "--checkpoint_dir", ck, *args, *SMALL, *PORT_FLAGS])
     assert e.value.code == 1
     assert names in capsys.readouterr().err
+    assert compute_dtype() == torch.float32
+
+
+def test_eval_cli_with_num_devices_matches_jax(fixture, tmp_path):
+    """`parallel.num_devices 2` (a training config's device count): the
+    port's eval decodes on its one device and writes the captions and
+    metrics of the JAX eval CLI run with the same field (which shards its
+    batches over two of the test's eight CPU devices)."""
+    data, jdir, tdir = fixture
+    args = ["--parallel.num_devices", "2", *SMALL]
+    jpath, tpath = str(tmp_path / "jax.json"), str(tmp_path / "torch.json")
+    want_printed = first_json(run_cli(j_eval.main, [
+        "--data_dir", data, "--checkpoint_dir", jdir, "--out", jpath, *args, *JAX_FLAGS]))
+    printed = first_json(run_cli(t_eval.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, "--out", tpath, *args, *PORT_FLAGS]))
+    with open(jpath) as f:
+        want = json.load(f)
+    with open(tpath) as f:
+        written = json.load(f)
+    assert written.keys() == want.keys() and written["beam_size"] == want["beam_size"] == 3
+    close_metrics(printed["metrics"], want_printed["metrics"])
+    close_metrics(written["metrics"], want["metrics"])
+    assert written["captions"] == want["captions"]
+    assert compute_dtype() == torch.float32
+
+
+def test_caption_cli_takes_num_devices(fixture, jax_captions):
+    """The caption CLI never reads `parallel.num_devices`, as the JAX one."""
+    data, _, tdir = fixture
+    got = json_lines(run_cli(t_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, *CAPTION_CASES["one_id"], *SMALL,
+        "--parallel.num_devices", "2", *PORT_FLAGS]))
+    assert got == jax_captions["one_id"]
+
+
+class _StubWriter:
+    """A `SummaryWriter` that records what it is given."""
+
+    made: list = []
+
+    def __init__(self, logdir):
+        self.logdir, self.scalars, self.closed = logdir, [], False
+        _StubWriter.made.append(self)
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+    def close(self):
+        self.closed = True
+
+
+@pytest.mark.parametrize("tb", ["mirrored", "unavailable"])
+def test_train_cli_tensorboard(fixture, monkeypatch, tmp_path, tb):
+    """`--tensorboard LOGDIR` mirrors every numeric scalar of
+    `train_log.jsonl` to a `torch.utils.tensorboard.SummaryWriter` there
+    (here a stub); where that module does not import, the run logs
+    "tensorboard unavailable" once and trains on, as the JAX CLI does
+    without tensorflow."""
+    import sys
+    import types
+
+    from controllable_xgating_torch.utils import logging as t_logging
+
+    data, _, _ = fixture
+    _StubWriter.made = []
+    said = []
+    logger = t_logging.get_logger()
+    monkeypatch.setattr(logger, "info", lambda msg, *a: said.append(msg % a if a else msg))
+    stub = types.ModuleType("torch.utils.tensorboard")
+    stub.SummaryWriter = _StubWriter
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", stub if tb == "mirrored" else None)
+    logdir = str(tmp_path / "tb")
+    run_cli(t_train.main, ["--data_dir", data, "--checkpoint_dir", str(tmp_path), "--stage",
+                           "joint", "--epochs", "1", "--tensorboard", logdir, *SMALL,
+                           "--train.log_every_steps", "1", *PORT_FLAGS])
+    with open(tmp_path / "joint" / "train_log.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    assert (tmp_path / "joint" / "last.pt").exists() and any("loss" in e for e in events)
+    unavailable = [m for m in said if m.startswith("tensorboard unavailable")]
+    if tb == "unavailable":
+        assert len(unavailable) == 1 and _StubWriter.made == []
+        return
+    assert unavailable == []
+    (writer,) = _StubWriter.made
+    want = [(k, float(v), e["step"]) for e in events for k, v in e.items()
+            if k not in ("ts", "step") and isinstance(v, (int, float))]
+    assert writer.logdir == logdir and writer.closed
+    assert writer.scalars == want and any(k == "loss" for k, _, _ in want)
     assert compute_dtype() == torch.float32
 
 
