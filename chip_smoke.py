@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's captioning (its decode loops as replayed CUDA
 graphs and as eager loops), quantized-decoding, ensemble and diverse-beam,
-XE-training and SCST paths and its three command-line entry points once
-on one NVIDIA GPU.
+XE-training and SCST paths, its three command-line entry points and its
+serving path once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -119,6 +119,25 @@ Phases, each fatal on failure:
      --beam_size 6 --eval.diversity_groups 3` (K1-K3, no topk_tail, finite
      metrics); each CLI must leave the process's compute policy as it
      found it;
+  10. the serving path (`serve_phase`; `serve/engine.py` and
+     `serve/server.py`, beam 5, buckets 1, 4, 16, 64): K1-K4 against
+     their plain versions at bucket 1's and 4's shapes (f32 and bf16);
+     under each policy a warmed engine (capture s and pool MiB per key)
+     serving 64 seeded requests from 4 threads (a quarter controlled,
+     ragged frame counts) and a batch of controlled rows only, with the
+     launch counts set to 0 before and read after: every batch equal to
+     the offline library call on the same padded bucket batch (tokens and
+     tags exactly, scores rtol 1e-6) with its launches; under f32 the 256
+     videos served against the 256-video offline call (>= 98% equal);
+     one batch per bucket through the warmed bf16 engine and through one
+     without warm-up whose captures run while the previous batch's
+     completion waits on its event (same results); per bucket the wall
+     of a served batch, free-run and with a controlled row, beside the
+     offline call, and its device ms; closed loops of 8 and 64 HTTP
+     clients by video id (requests/s, p50 / p99, occupancy, batches per
+     bucket, busy share, idle gaps between batches) and an open loop at
+     1.5x the 64-client rate with 200 ms deadlines (goodput, late
+     completions, predictive sheds);
 then print every kernel's device microseconds per launch beside its
 bound, one JSON line of kernel results (eight kernels, each with its
 launches on its path, bound and times) and, last, one JSON line
@@ -254,11 +273,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_cases(params, dev, r: int = B * K):
+def kernel_cases(params, dev, r: int = B * K, b: int = B):
     """(name, kernel call, plain call) at the path's shapes, with seeded
-    inputs, built under the current policy; the decoder-step and top-K
-    kernels at `r` rows (beam-5's by default). The kernels get their weights
-    cast once beforehand, as the caption loops give them."""
+    inputs, built under the current policy, for `b` videos (the fusion's
+    b x 26 rows, the POS step's b); the decoder-step and top-K kernels at
+    `r` rows (beam-5's by default). The kernels get their weights cast once
+    beforehand, as the caption loops give them."""
     import torch
 
     from controllable_xgating_torch.models.decoder import init_decoder_state, make_decode_context
@@ -275,11 +295,11 @@ def kernel_cases(params, dev, r: int = B * K):
     ri = lambda lo, hi, s: torch.randint(lo, hi, s, generator=g, device=dev)
     enc, pos, dec = params.encoder, params.pos, params.decoder
     he, hp, hd = enc.out_dim, pos.lstm.hidden_dim, dec.hidden_dim
-    xa, xm = rn(B * T, enc.xgate.wa.shape[0]), rn(B * T, enc.xgate.wm.shape[0])
-    tok_pos = ri(4, POS_VOCAB, (B,))
+    xa, xm = rn(b * T, enc.xgate.wa.shape[0]), rn(b * T, enc.xgate.wm.shape[0])
+    tok_pos = ri(4, POS_VOCAB, (b,))
     e_pos = pos.embed[tok_pos]
-    sg = _summary_gates(pos, torch.tanh(rn(B, he)))
-    h_pos, c_pos = torch.tanh(rn(B, hp)), rn(B, hp)
+    sg = _summary_gates(pos, torch.tanh(rn(b, he)))
+    h_pos, c_pos = torch.tanh(rn(b, hp)), rn(b, hp)
     mask = (torch.arange(T, device=dev)[None] < ri(T // 2, T + 1, (r, 1))).float()
     ctx = make_decode_context(dec, torch.tanh(rn(r, T, he)), torch.tanh(rn(r, dec.w_psi.shape[0])), mask)
     h_dec, c_dec = init_decoder_state(dec, torch.tanh(rn(r, he)))
@@ -633,26 +653,27 @@ def bound(nbytes: float, ops: float, ops_s: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def caption_bounds(params) -> dict:
+def caption_bounds(params, b: int = B) -> dict:
     """Bounds of the caption kernels at the shapes `kernel_cases` gives
-    them, bf16 policy: operands in bf16 (2 bytes), biases, cell state,
-    masks and f32 results in 4, products on the tensor cores."""
+    them for `b` videos (beam 5), bf16 policy: operands in bf16 (2 bytes),
+    biases, cell state, masks and f32 results in 4, products on the
+    tensor cores."""
     c = 2
     enc, pos, dec = params.encoder, params.pos, params.decoder
     da, h = enc.xgate.wa.shape
     dm = enc.xgate.wm.shape[0]
-    rows = B * T
+    rows = b * T
     e_p, hp = pos.embed.shape[1], pos.lstm.hidden_dim
-    r, hd, e, a, g, v = B * K, dec.hidden_dim, dec.embed.shape[1], dec.attn.wq.shape[1], \
+    r, hd, e, a, g, v = b * K, dec.hidden_dim, dec.embed.shape[1], dec.attn.wq.shape[1], \
         dec.w_psi.shape[1], dec.vocab_size
     return {
         # ea, em, two gates and the split Wf: 2 R H (Da + Dm + 4H)
         "xgate": bound(c * (rows * (da + dm + h) + h * (da + dm + 4 * h)) + 4 * 5 * h,
                        2 * rows * h * (da + dm + 4 * h), BF16_OPS_S),
         # gates = e @ wih_e + s_gates + h @ whh + b, then the cell
-        "pos_lstm": bound(c * (B * (e_p + hp) + (e_p + hp) * 4 * hp)
-                          + 4 * (B * 4 * hp + 4 * hp + 3 * B * hp),
-                          2 * B * (e_p + hp) * 4 * hp, BF16_OPS_S),
+        "pos_lstm": bound(c * (b * (e_p + hp) + (e_p + hp) * 4 * hp)
+                          + 4 * (b * 4 * hp + 4 * hp + 3 * b * hp),
+                          2 * b * (e_p + hp) * 4 * hp, BF16_OPS_S),
         # keys and projected memory [R, T, A|G] dominate the bytes
         "attn_lstm": bound(c * (r * (hd + e + T * (a + g) + 2 * g)
                                 + hd * a + a + (hd + e) * g + (e + g + hd) * 4 * hd)
@@ -1877,6 +1898,593 @@ def a9_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
     return out
 
 
+# the serve phase: the engine's buckets and the kernels of its beam-5
+# path; each closed loop's length, the open loop's length, deadline and
+# offered rate over the 64-client closed loop's
+SERVE_BUCKETS = (1, 4, 16, 64)
+SERVE_PATH = ("xgate", "pos_lstm", "attn_lstm", "topk_tail")
+CLOSED_S, OPEN_S, DEADLINE_MS, OVERLOAD = 8.0, 8.0, 200.0, 1.5
+SLEEP_CYCLES = 600_000_000  # a device sleep of ~0.3 s at the H100's boost clock
+
+
+def check_serve_kernels(params, dev) -> dict:
+    """K1-K4 against their plain versions at bucket 1's and bucket 4's
+    shapes (beam 5: the fusion on 26b rows, the POS step on b, the decoder
+    step and the top-K tail on 5b), under the f32 policy (F32_TOL) and the
+    bf16 policy (BF16_TOL; top-K ids equal on rows clear of ties); wrapper
+    and plain ms (CUDA events) and, under bf16, device us per launch
+    beside the bound. Returns {"name@b": numbers}."""
+    import torch
+
+    from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk_plain
+    from controllable_xgating_torch.ops.precision import precision
+
+    rows = {}
+    for b in (1, 4):
+        bounds = caption_bounds(params, b)
+        for policy in ("float32", "bfloat16"):
+            with precision(policy):
+                cases, tail_inputs = kernel_cases(params, dev, r=b * K, b=b)
+                rv, ri, _ = logits_topk_plain(*tail_inputs, K + 1)
+                for name, kern, plain in cases:
+                    if name not in SERVE_PATH:
+                        continue
+                    tol = BF16_TOL[name] if policy == "bfloat16" else F32_TOL
+                    label = f"{name} [{policy}, bucket {b}]"
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    if name == "topk_tail":
+                        clear, same = ids_agree(got[1], rv, ri, tol)
+                        if not bool(same[clear].all()):
+                            fail(f"{label}: top-{K} ids differ on "
+                                 f"{int((~same & clear).sum())} clear rows")
+                        got, ref = (got[0], got[2]), (ref[0], ref[2])
+                    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+                    if not all(bool(torch.isfinite(x).all()) and torch.allclose(
+                            x.float(), y.float(), **tol) for x, y in zip(got, ref)):
+                        fail(f"{label}: max |kernel - plain| = {err:.3e} outside {tol}")
+                    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+                    line = (f"kernel {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+                            f"plain {plain_ms:.4f} ms")
+                    if policy == "bfloat16":
+                        us = sum(kernel_device_split(kern).values())
+                        line += (f"  device {us:.2f} us per launch (bound "
+                                 f"{bounds[name][0] * 1e3:.2f} us, {bounds[name][1]})")
+                        rows[f"{name}@{b}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                               "device_us": us, "bound_us": bounds[name][0] * 1e3}
+                    print(f"{line}; {CARD}")
+    return rows
+
+
+def serve_requests(cfg, n: int, seed: int, tags: list) -> list:
+    """n seeded requests at MSR-VTT width: T in [13, 39] frames (below, at
+    and above the model's 26) with nframes in [1, T]; every fourth
+    controlled by 3-12 tags."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m, out = cfg.model, []
+    for i in range(n):
+        t = int(rng.integers(T // 2, T * 3 // 2))
+        out.append({
+            "app": rng.standard_normal((t, m.app_dim), dtype=np.float32),
+            "motion": rng.standard_normal((t, m.motion_dim), dtype=np.float32),
+            "nframes": int(rng.integers(1, t + 1)),
+            "pos_tags": ([tags[j] for j in rng.integers(0, len(tags), int(rng.integers(3, 13)))]
+                         if i % 4 == 1 else None),
+        })
+    return out
+
+
+def submit_from_threads(eng, reqs: list, threads: int = 4) -> list:
+    """Submit `reqs` from `threads` threads at once -> their Futures, in order."""
+    import threading
+
+    futs = [None] * len(reqs)
+    barrier = threading.Barrier(threads)
+
+    def producer(k):
+        barrier.wait(60)
+        for i in range(k, len(reqs), threads):
+            futs[i] = eng.submit(**reqs[i])
+
+    ts = [threading.Thread(target=producer, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    if any(t.is_alive() for t in ts) or None in futs:
+        fail("serve: a producer thread did not submit its requests")
+    return futs
+
+
+def serve_offline(params, cfg, inputs):
+    """The offline library call on one padded bucket batch, kernels on:
+    `encode_for_inference` with `use_tags`, then `beam_search` ->
+    (tokens, tags, scores)."""
+    import torch
+
+    from controllable_xgating_torch.infer.beam import beam_search
+    from controllable_xgating_torch.models.captioner import encode_for_inference
+
+    app, motion, mask, tags, use_tags = inputs
+    with torch.inference_mode():
+        ctx, summary, tags_out = encode_for_inference(
+            params, app.float(), motion.float(), mask, pos_tags=tags,
+            max_pos_len=cfg.model.max_pos_len, fused=True, early_stop=True, use_tags=use_tags)
+        toks, scores = beam_search(params.decoder, ctx, summary, K, cfg.eval.max_decode_len,
+                                   cfg.eval.length_penalty, fused=True, early_stop=True)
+    return toks.int(), tags_out.int(), scores
+
+
+def check_served_batches(eng, params, cfg, policy: str, reqs: list, controlled: list) -> dict:
+    """Serve `reqs` from 4 threads, then `controlled` (controlled rows
+    only) from one, recording every batch at the engine's device seam;
+    the launch counts are set to 0 before and read after (every kernel of
+    the path must launch). Each recorded batch must equal the offline call
+    on the same padded bucket batch: tokens and tags exactly, scores within
+    rtol 1e-6 (the same kernels on the same operands), launches equal."""
+    import collections
+
+    import torch
+
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.precision import precision
+
+    orig, calls = eng._fn, []
+    ledger = graphs.LaunchLedger()
+
+    def recording(params_, *inputs):
+        before = ledger.read()
+        out = orig(params_, *inputs)
+        calls.append(([None if x is None else x.clone() for x in inputs], out.clone(), ledger.since(before)))
+        return out
+
+    eng._fn = recording
+    kernels.reset_launch_counts()
+    for f in submit_from_threads(eng, reqs):
+        f.result(timeout=300)
+    for f in submit_from_threads(eng, controlled, threads=1):
+        f.result(timeout=300)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    eng._fn = orig
+    if not all(counts[n] for n in SERVE_PATH):
+        fail(f"serve [{policy}]: a kernel of the path never launched: {counts}")
+    if not bool(calls[-1][0][4].all()):
+        fail(f"serve [{policy}]: the last batch was not the controlled-only one")
+    nb, lp = cfg.eval.max_decode_len, cfg.model.max_pos_len
+    per_batch, err = collections.Counter(), 0.0
+    for inputs, packed, launches in calls:
+        before = ledger.read()
+        with precision(policy):
+            toks, tags, scores = serve_offline(params, cfg, inputs)
+        torch.cuda.synchronize()
+        want = ledger.since(before)
+        got_scores = packed[:, -1].view(torch.float32)
+        err = max(err, (got_scores - scores).abs().max().item())
+        if not (torch.equal(packed[:, :nb], toks) and torch.equal(packed[:, nb:nb + lp], tags)
+                and torch.allclose(got_scores, scores, rtol=1e-6, atol=0.0)):
+            fail(f"serve [{policy}]: a served batch of {inputs[0].shape[0]} differs from the "
+                 "offline call on the same bucket batch")
+        if launches != want or launches.get("xgate") != 1:
+            fail(f"serve [{policy}]: launches per batch {launches}, offline call {want}")
+        per_batch[(inputs[0].shape[0], tuple(sorted(launches.items())))] += 1
+    if not calls[-1][2].get("pos_lstm"):
+        fail(f"serve [{policy}]: the controlled-only batch did not roll the POS generator")
+    print(f"serve equality [{policy}]: {len(reqs)} requests from 4 threads and {len(controlled)} "
+          f"controlled from one in {len(calls)} batches; tokens and tags equal the offline call on "
+          f"each bucket batch, scores max |d| {err:.3e}; launches per batch equal the offline "
+          f"call's, (bucket, launches): batches {dict(per_batch)}; path launches {counts}; {CARD}")
+    return {"batches": len(calls), "launches": counts, "score_err": err}
+
+
+def gated_groups(eng, groups: list):
+    """Serve `groups` (lists of requests, one bucket each) so that each
+    group's batch reaches the device while the previous batch's completion
+    waits on its event: the device seam holds batch i until group i + 1 is
+    queued, and a device sleep of ~0.3 s after each batch delays its
+    event. Returns (results per group, [captured keys while the previous
+    batch's event was pending] per batch)."""
+    import threading
+
+    import torch
+
+    from controllable_xgating_torch.infer import graphs
+
+    orig = eng._fn
+    entered, go = threading.Semaphore(0), [threading.Event() for _ in groups]
+    state, overlap = {"i": 0, "prev": None}, []
+
+    def gated(*a):
+        i = state["i"]
+        state["i"] += 1
+        entered.release()
+        if not go[i].wait(300):
+            raise RuntimeError("serve: the gate never opened")
+        pending = state["prev"] is not None and not state["prev"].query()
+        n = len(graphs.cache_info())
+        out = orig(*a)
+        overlap.append(pending and len(graphs.cache_info()) > n)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        state["prev"] = torch.cuda.Event()
+        state["prev"].record()
+        return out
+
+    eng._fn = gated
+    try:
+        futs = [[eng.submit(**r) for r in groups[0]]]
+        if not entered.acquire(timeout=300):
+            fail("serve: the first batch never reached the device seam")
+        for i in range(1, len(groups)):
+            futs.append([eng.submit(**r) for r in groups[i]])  # queued behind batch i - 1
+            go[i - 1].set()
+            if not entered.acquire(timeout=300):
+                fail(f"serve: batch {i} never reached the device seam")
+        go[-1].set()
+        return [[f.result(timeout=300) for f in fs] for fs in futs], overlap
+    finally:
+        for g in go:
+            g.set()
+        eng._fn = orig
+
+
+def closed_loop(port: int, eng, spans: list, vids: list, clients: int, seconds: float,
+                seed: int) -> dict:
+    """`clients` threads, each on its own keep-alive connection, POST
+    /caption by video id for `seconds`: requests/s, p50 / p99 latency
+    (client side), occupancy and batches per bucket (the engine's), the
+    device's event span share of the window and the idle gaps between
+    batches (CUDA events around each batch at the device seam, appended
+    to `spans` by the seam), and the interpreter's garbage collections in
+    the window (count by generation, the longest pause: a collection
+    holds the GIL, so every thread waits it out)."""
+    import collections
+    import gc
+    import http.client
+    import random
+    import threading
+
+    import numpy as np
+    import torch
+
+    lat, errors, lock = [], [], threading.Lock()
+    n0 = (eng._n_requests, eng._n_padded_rows, eng._n_batches)
+    spans.clear()
+    stop = time.perf_counter() + seconds
+
+    def client(k):
+        rng = random.Random(seed + k)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        mine = []
+        try:
+            while time.perf_counter() < stop:
+                body = json.dumps({"video": rng.choice(vids)}).encode()
+                t = time.perf_counter()
+                conn.request("POST", "/caption", body=body,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status}: {data[:200]!r}")
+                mine.append(time.perf_counter() - t)
+        except Exception as e:  # noqa: BLE001 — reported below, fatal
+            with lock:
+                errors.append(repr(e))
+        finally:
+            conn.close()
+            with lock:
+                lat.extend(mine)
+
+    pauses, gc_start = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start["t"] = time.perf_counter()
+        elif "t" in gc_start:
+            pauses.append((info["generation"], (time.perf_counter() - gc_start.pop("t")) * 1e3))
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(seconds + 300)
+    finally:
+        wall = time.perf_counter() - t0
+        gc.callbacks.remove(on_gc)
+    if errors or any(t.is_alive() for t in ts):
+        fail(f"serve closed loop ({clients} clients): {errors[:3]}")
+    torch.cuda.synchronize()
+    req = eng._n_requests - n0[0]
+    pad = eng._n_padded_rows - n0[1]
+    window = list(spans)
+    dev_ms = sum(s.elapsed_time(e) for _, s, e in window)
+    gaps = [window[i][2].elapsed_time(window[i + 1][1]) for i in range(len(window) - 1)]
+    lat_ms = np.sort(np.array(lat)) * 1e3
+    return {
+        "clients": clients, "seconds": wall, "requests": len(lat), "requests_s": len(lat) / wall,
+        "p50_ms": float(lat_ms[int(0.50 * (len(lat_ms) - 1))]),
+        "p99_ms": float(lat_ms[int(0.99 * (len(lat_ms) - 1))]),
+        "batches": eng._n_batches - n0[2], "occupancy": req / (req + pad) if req else None,
+        "batches_by_bucket": dict(sorted(collections.Counter(b for b, _, _ in window).items())),
+        "span_share": dev_ms / (wall * 1e3),
+        "idle_gap_ms_max": max(gaps) if gaps else None,
+        "idle_gap_ms_median": float(np.median(gaps)) if gaps else None,
+        "gc_by_generation": dict(sorted(collections.Counter(g for g, _ in pauses).items())),
+        "gc_pause_ms_max": max((ms for _, ms in pauses), default=0.0),
+    }
+
+
+def bucket_costs(eng, videos: list) -> dict:
+    """Per bucket, with no other load, the first videos of `videos`: the
+    wall of one batch through the engine's device call (staging, the
+    library calls, the packed transfer), free-run and with one controlled
+    row (the teacher-forced pass), and of the offline library call
+    (`make_beam_caption_fn`, kernels on), each synchronised, medians of 5
+    in turns; the free-run batch's device ms (one call profiled,
+    `call_device_ms`: the profiler's where it sees the port's kernels,
+    else the CUDA-event span). bf16, the engine's scope."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.utils.profiling import call_device_ms
+
+    m, out = eng.cfg.model, {}
+    for b in eng.buckets:
+        rows = videos[:b]
+        x = (np.stack([r["app"] for r in rows]), np.stack([r["motion"] for r in rows]),
+             (np.arange(T)[None] < np.array([r["nframes"] for r in rows])[:, None]).astype(
+                 np.float32), np.zeros((b, m.max_pos_len), np.int64), np.zeros(b, bool))
+        x[4][0] = True  # one controlled row: the teacher-forced pass runs
+        offline_fn = caption_fn(True, None)
+        dx = [torch.as_tensor(a, device=eng._device) for a in x[:3]]
+
+        def offline():
+            with precision(eng._dtype):
+                offline_fn(eng.params, *dx)
+            torch.cuda.synchronize()
+
+        calls = {"served": lambda: eng._device_batch(*x[:3]),
+                 "served_controlled": lambda: eng._device_batch(*x), "offline": offline}
+        walls = {name: [] for name in calls}
+        for fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
+        for i in range(5):
+            for name, fn in calls.items():
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t) * 1e3)
+        d = call_device_ms(lambda: (calls["served"](), torch.cuda.synchronize()))
+        out[b] = {**{f"{n}_wall_ms": float(np.median(w)) for n, w in walls.items()},
+                  "device_ms": d["profiler"] if d["kernels_seen"] else d["events"],
+                  "device_from": "profiler" if d["kernels_seen"] else "events"}
+    return out
+
+
+def open_loop(eng, feats: list, rate: float, seconds: float, seed: int) -> dict:
+    """Poisson arrivals at `rate` per second for `seconds`, each a
+    `submit(..., deadline_ms=DEADLINE_MS)` on the engine (not through HTTP,
+    so that the offered rate is the one asked for): goodput (results within
+    the deadline per second), late completions, predictive and queue-head
+    sheds (the engine's counters over the run)."""
+    import random
+    import threading
+
+    import numpy as np
+
+    from controllable_xgating_torch.serve.engine import DeadlineExceeded
+
+    rng = random.Random(seed)
+    s0 = eng.stats()
+    done, lock = [], threading.Lock()
+
+    def record(fut):
+        if fut.cancelled() or fut.exception() is not None:
+            return
+        with lock:
+            done.append(fut.result().latency_ms)
+
+    futs, t0 = [], time.perf_counter()
+    t_next = t0
+    while t_next - t0 < seconds:
+        t_next += rng.expovariate(rate)
+        delay = t_next - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        f = eng.submit(**feats[rng.randrange(len(feats))], deadline_ms=DEADLINE_MS)
+        f.add_done_callback(record)
+        futs.append(f)
+    offered_s = time.perf_counter() - t0
+    for f in futs:
+        try:
+            f.result(timeout=300)
+        except DeadlineExceeded:  # shed: counted by the engine
+            pass
+    wall = time.perf_counter() - t0
+    s1 = eng.stats()
+    lat = np.sort(np.array(done))
+    good = int((lat <= DEADLINE_MS).sum())
+    return {
+        "offered_s": rate, "submitted": len(futs), "submit_rate_s": len(futs) / offered_s,
+        "wall_s": wall, "completed": len(done), "goodput_s": good / wall,
+        "late": s1["late_completions"] - s0["late_completions"],
+        "shed_predicted": s1["deadline_shed_predicted"] - s0["deadline_shed_predicted"],
+        "expired": s1["deadline_expired"] - s0["deadline_expired"],
+        "p50_ms": float(lat[int(0.5 * (len(lat) - 1))]) if len(lat) else None,
+        "p99_ms": float(lat[int(0.99 * (len(lat) - 1))]) if len(lat) else None,
+        "shed_margin_live": s1["shed_margin_live"],
+    }
+
+
+def serve_phase(params, cfg, store, info, dev) -> dict:
+    """The serving path (`serve/engine.py`, `serve/server.py`) at MSR-VTT
+    width, beam 5, buckets (1, 4, 16, 64):
+      1. K1-K4 against their plain versions at bucket 1's and 4's shapes;
+      2. an engine per policy, warmed (capture s and pool MiB per key);
+      3. under f32 and bf16, 64 seeded requests from 4 threads (a quarter
+         controlled, ragged frame counts) and 4 controlled ones: every
+         batch equal to the offline call on the same bucket batch, with
+         its launches; under f32 the 256 videos served against the
+         256-video offline call (>= 98% of the captions equal);
+      4. one batch per bucket through the warmed bf16 engine, then through
+         an engine without warm-up whose captures run while the previous
+         batch's completion waits on its event: the same results;
+      5. that engine behind `serve/server.py`: closed loops of 8 and 64
+         clients by video id;
+      6. an open loop at OVERLOAD x the 64-client rate with deadlines.
+    Returns the printed numbers."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.data.vocab import Vocab
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.serve.engine import ServingEngine
+    from controllable_xgating_torch.serve.server import serve
+
+    t_phase = time.perf_counter()
+    out = {"kernels": check_serve_kernels(params, dev)}
+    tags = [f"t{i}" for i in range(POS_VOCAB - 4)]
+    pos_vocab = Vocab(tags)
+    idx = np.arange(B)
+    app, mot = store.get_batch(idx)
+    counts = store.counts
+    videos = [{"app": app[i], "motion": mot[i], "nframes": int(counts[i])} for i in idx]
+
+    def engine(policy):
+        graphs.clear()  # the cache holds this engine's keys only
+        with precision(policy):
+            t = time.perf_counter()
+            eng = ServingEngine(params, cfg, info.vocab, pos_vocab, mode="beam",
+                                buckets=SERVE_BUCKETS)
+            eng.warmup()
+            wall = time.perf_counter() - t
+        keys = [{"kind": e["kind"], "capture_s": round(e["capture_s"], 3),
+                 "pool_mib": round(e["pool_bytes"] / 2 ** 20, 1)} for e in graphs.cache_info()]
+        print(f"serve warmup [{policy}]: {wall:.2f} s for buckets {SERVE_BUCKETS}; keys {keys}; "
+              f"{CARD}")
+        out[f"warmup_{policy}"] = {"s": wall, "keys": keys}
+        return eng
+
+    reqs = serve_requests(cfg, 64, seed=11, tags=tags)
+    controlled = [dict(r, pos_tags=tags[:6]) for r in serve_requests(cfg, 4, seed=12, tags=tags)]
+    groups, start = [], 0
+    ladder = serve_requests(cfg, sum(SERVE_BUCKETS), seed=13, tags=tags)
+    for b in SERVE_BUCKETS:
+        groups.append(ladder[start:start + b])
+        start += b
+
+    eng = engine("float32")
+    try:
+        out["equal_float32"] = check_served_batches(eng, params, cfg, "float32", reqs, controlled)
+        served = [f.result(timeout=300) for f in submit_from_threads(eng, videos)]
+    finally:
+        eng.close()
+    with precision("float32"):
+        toks = caption_fn(True, None)(params, *(torch.as_tensor(x, device=dev) for x in (
+            app, mot, store.frame_mask(idx))))[0].cpu().numpy()
+    agree = float(np.mean([r.caption == info.vocab.decode_str(t) for r, t in zip(served, toks)]))
+    print(f"serve agreement [float32]: {agree:.4f} of the {B} videos served in buckets of up to "
+          f"{SERVE_BUCKETS[-1]} caption as the {B}-video offline call; {CARD}")
+    if agree < AGREE_MIN:
+        fail(f"serve f32 agreement with the {B}-video call {agree:.4f} < {AGREE_MIN}")
+    out["agreement_float32"] = agree
+
+    eng = engine("bfloat16")
+    try:
+        out["equal_bfloat16"] = check_served_batches(eng, params, cfg, "bfloat16", reqs, controlled)
+        want, _ = gated_groups(eng, groups)
+    finally:
+        eng.close()
+    graphs.clear()
+    with precision("bfloat16"):
+        eng = ServingEngine(params, cfg, info.vocab, pos_vocab, mode="beam", buckets=SERVE_BUCKETS)
+    try:
+        got, overlap = gated_groups(eng, groups)
+        same = all((a.caption, a.pos_sequence, a.score, a.batch_size)
+                   == (b.caption, b.pos_sequence, b.score, b.batch_size)
+                   for ga, gb in zip(got, want) for a, b in zip(ga, gb))
+        print(f"serve no warm-up [bfloat16]: one batch per bucket {SERVE_BUCKETS}, keys captured "
+              f"while the previous batch's event was pending: {overlap}; results equal the warmed "
+              f"engine's: {same}; keys {len(graphs.cache_info())}; {CARD}")
+        if not same:
+            fail("serve: the engine without warm-up served other results than the warmed one")
+        if overlap[1:] != [True] * (len(SERVE_BUCKETS) - 1):
+            fail(f"serve: no capture overlapped a pending batch ({overlap}): hazard not exercised")
+        out["no_warmup"] = {"overlap": overlap, "equal": same}
+
+        # steps 5 and 6 on this engine, now holding every bucket's keys
+        spans = []
+        orig = eng._fn
+
+        def timed(*a):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = orig(*a)
+            e.record()
+            spans.append((a[1].shape[0], s, e))
+            return res
+
+        eng._fn = timed
+        httpd = serve(eng, "127.0.0.1", 0, store=store, video_ids=list(info.video_ids))
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        try:
+            vids = list(info.video_ids)
+            for clients in (8, 64):
+                out[f"closed_{clients}"] = closed_loop(httpd.server_address[1], eng, spans, vids,
+                                                       clients, CLOSED_S, seed=clients)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(60)
+        eng._fn = orig
+        costs = out["bucket_costs"] = bucket_costs(eng, videos)
+        for b, c in costs.items():
+            print(f"serve bucket {b} [bfloat16, beam 5, no other load, {CARD}]: wall "
+                  f"{c['served_wall_ms']:.2f} ms through the engine's device call (free-run "
+                  f"rows), {c['served_controlled_wall_ms']:.2f} ms with a controlled row, "
+                  f"offline call {c['offline_wall_ms']:.2f} ms (medians of 5 in turns); device "
+                  f"{c['device_ms']:.2f} ms ({c['device_from']})")
+        for clients in (8, 64):
+            r = out[f"closed_{clients}"]
+            r["busy"] = sum(n * costs[b]["device_ms"] for b, n in
+                            r["batches_by_bucket"].items()) / (r["seconds"] * 1e3)
+            print(f"serve closed loop [bfloat16, beam 5, {clients} clients, "
+                  f"{r['seconds']:.1f} s, {CARD}]: {r['requests_s']:.1f} requests/s, p50 "
+                  f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, occupancy "
+                  f"{r['occupancy']:.3f}, batches by bucket {r['batches_by_bucket']}, device "
+                  f"busy {r['busy']:.3f} (batches x their bucket's device ms / wall), event "
+                  f"span share {r['span_share']:.3f}, idle gap between batches max "
+                  f"{r['idle_gap_ms_max']:.2f} ms, median {r['idle_gap_ms_median']:.2f} ms; "
+                  f"garbage collections {r['gc_by_generation']}, longest "
+                  f"{r['gc_pause_ms_max']:.2f} ms")
+        rate = OVERLOAD * out["closed_64"]["requests_s"]
+        r = out["open"] = open_loop(eng, videos, rate, OPEN_S, seed=7)
+        print(f"serve open loop [bfloat16, beam 5, deadline {DEADLINE_MS:.0f} ms, shed_margin "
+              f"1.3, {CARD}]: offered {rate:.1f} requests/s ({OVERLOAD} x the 64-client rate), "
+              f"submitted {r['submit_rate_s']:.1f}/s, goodput {r['goodput_s']:.1f}/s, completed "
+              f"{r['completed']} of {r['submitted']}, late {r['late']}, predictive sheds "
+              f"{r['shed_predicted']}, expired {r['expired']}, p50 {r['p50_ms']} ms, p99 "
+              f"{r['p99_ms']} ms")
+    finally:
+        eng.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve phase: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1999,6 +2607,10 @@ def main() -> None:
     set_compute_dtype("float32")  # each CLI picks bf16 and must leave this as it found it
     cli = cli_phase(dev, cfg)
 
+    # the serving path: the engine's buckets through the kernels, the
+    # HTTP front end under load
+    serve_rows = serve_phase(params, cfg, store, info, dev)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -2038,6 +2650,7 @@ def main() -> None:
     print("a9 phase (host clock /s; agreement): " + json.dumps(a9))
     print("cli phase (host clock, s and /s): " + json.dumps(cli))
     print("graphs phase (graphed vs eager, bf16): " + json.dumps(graph_rows))
+    print("serve phase: " + json.dumps(serve_rows, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

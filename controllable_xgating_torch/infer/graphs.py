@@ -36,6 +36,18 @@ count at capture, the counters are put back as they were before the
 warm-up, and each replay adds its chunk's count, so a call counts what
 the eager call counts.
 
+Threads: a capture runs in `capture_error_mode="thread_local"`, so that
+only the capturing thread's own unsafe calls (a synchronize, a blocking
+copy) break it. A serving engine captures a bucket's first batch in its
+dispatcher thread while its completion thread waits on the previous
+batch's event; under the default "global" mode that wait is an error.
+The cache is one per process. A holder (`hold`) keeps the keys its
+threads run (`adding_to`) until it releases them, beside MAX_KEYS others:
+a serving engine holds its buckets' keys for its life, so that no key of
+another caller, and no bucket of its own, evicts one and makes a batch
+capture again. One key runs in one thread at a time (its static buffers
+are shared); the engine's dispatcher is its keys' one thread.
+
 `resolve_mode` picks the execution: graphs for CUDA tensors, the eager
 loop for CPU tensors and where autograd must record (SCST's POS rollout
 under gradient); `ops/dispatch.py::set_decode_graphs` and each loop's
@@ -48,7 +60,9 @@ eager loop.
 from __future__ import annotations
 
 import collections
+import threading
 import time
+from contextlib import contextmanager
 from typing import Callable, Optional
 
 import torch
@@ -266,17 +280,57 @@ class Entry:
 _CACHE: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
 # the last graphed call: its kind, whether it captured, chunks replayed of all
 LAST: dict = {}
+_HELD: list = []  # the key sets held (`hold`) until released
+_CACHE_LOCK = threading.Lock()  # _CACHE's order and _HELD, across threads
+_THREAD = threading.local()  # .keys: the set the calling thread's keys join
 
 
 def clear() -> None:
     """Drop every key's graphs (and so their memory pools)."""
-    _CACHE.clear()
+    with _CACHE_LOCK:
+        _CACHE.clear()
+
+
+def hold(keys: set) -> None:
+    """Keep every key in `keys` cached until `release(keys)`: held keys are
+    never evicted and do not count against MAX_KEYS. A thread adds the
+    keys it runs to `keys` inside `adding_to(keys)`."""
+    with _CACHE_LOCK:
+        _HELD.append(keys)
+
+
+def release(keys: set) -> None:
+    """Make the keys of `hold(keys)` ordinary LRU keys again."""
+    with _CACHE_LOCK:
+        _HELD[:] = [k for k in _HELD if k is not keys]
+        _evict()
+
+
+@contextmanager
+def adding_to(keys: set):
+    """Inside the block, every key the calling thread runs joins `keys`."""
+    prev = getattr(_THREAD, "keys", None)
+    _THREAD.keys = keys
+    try:
+        yield
+    finally:
+        _THREAD.keys = prev
+
+
+def _evict() -> None:
+    """Drop the oldest keys that no holder holds beyond MAX_KEYS of them
+    (under _CACHE_LOCK)."""
+    held = set().union(*_HELD)
+    free = [k for k in _CACHE if k not in held]
+    for k in free[:max(0, len(free) - MAX_KEYS)]:
+        del _CACHE[k]
 
 
 def cache_info() -> list[dict]:
     """Per cached key, oldest first: kind, chunks, capture seconds, pool bytes."""
-    return [{"kind": k[0], "chunks": len(e.spans), "capture_s": e.capture_s,
-             "pool_bytes": e.pool_bytes} for k, e in _CACHE.items()]
+    with _CACHE_LOCK:
+        return [{"kind": k[0], "chunks": len(e.spans), "capture_s": e.capture_s,
+                 "pool_bytes": e.pool_bytes} for k, e in _CACHE.items()]
 
 
 def _steps(loop: StepLoop, carry: dict, span) -> dict:
@@ -312,7 +366,7 @@ def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
         for i, span in enumerate(spans):
             graph = torch.cuda.CUDAGraph()
             before = ledger.read()
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 work = _steps(loop, entry.carry, span)
                 entry.flags[i].copy_(loop.done(work))
                 copy_tree(entry.carry, work)  # the carry this chunk ends with
@@ -373,16 +427,22 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
             return loop.finish(state["carry"])
         key = loop.key() + (max_len,)
         inp = loop.prepare()
-        entry = _CACHE.get(key)
+        held = getattr(_THREAD, "keys", None)
+        with _CACHE_LOCK:
+            entry = _CACHE.get(key)
+            if entry is not None:
+                _CACHE.move_to_end(key)
         captured = entry is None
         if captured:
             entry = _capture(loop, inp, spans)
-            _CACHE[key] = entry
-            while len(_CACHE) > MAX_KEYS:
-                _CACHE.popitem(last=False)
         else:
-            _CACHE.move_to_end(key)
             entry.loop.load(inp)
+        with _CACHE_LOCK:
+            if held is not None:
+                held.add(key)
+            if captured:
+                _CACHE[key] = entry
+                _evict()
         copy_tree(entry.carry, entry.loop.init())
         n = _replay(entry, early_stop)
         LAST.update(kind=loop.kind, captured=captured, chunks=n, of=len(spans))

@@ -12,12 +12,16 @@ TF32 is switched off for matmuls and cuDNN: it keeps ~3 decimal digits
 and would make the f32 policy a different computation on the card.
 
 The policy is process-global. CLIs set it once at startup (bf16 on the
-card, as the JAX CLIs do on any non-CPU backend); tests pin f32. `mm`
-carries the JAX `mm`'s custom VJP for training.
+card, as the JAX CLIs do on any non-CPU backend); tests pin f32. A thread
+may pin its own dtype over the global one (`thread_precision`): the
+serving engine's dispatcher computes under the dtype the engine was built
+with, whatever another thread sets later. `mm` carries the JAX `mm`'s
+custom VJP for training.
 """
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 
 import torch
@@ -26,19 +30,25 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _POLICY = {"compute_dtype": torch.float32}
+_THREAD = threading.local()  # .dtype: this thread's pin over _POLICY, or unset
+
+
+def _parse(dtype) -> torch.dtype:
+    if str(dtype) in ("bfloat16", "bf16", "torch.bfloat16"):
+        return torch.bfloat16
+    if str(dtype) in ("float32", "f32", "torch.float32"):
+        return torch.float32
+    raise ValueError(f"compute dtype must be bfloat16 or float32, got {dtype!r}")
 
 
 def set_compute_dtype(dtype) -> None:
-    if str(dtype) in ("bfloat16", "bf16", "torch.bfloat16"):
-        _POLICY["compute_dtype"] = torch.bfloat16
-    elif str(dtype) in ("float32", "f32", "torch.float32"):
-        _POLICY["compute_dtype"] = torch.float32
-    else:
-        raise ValueError(f"compute dtype must be bfloat16 or float32, got {dtype!r}")
+    _POLICY["compute_dtype"] = _parse(dtype)
 
 
 def compute_dtype() -> torch.dtype:
-    return _POLICY["compute_dtype"]
+    """The calling thread's pinned dtype (`thread_precision`), else the
+    process-global policy."""
+    return getattr(_THREAD, "dtype", None) or _POLICY["compute_dtype"]
 
 
 @contextmanager
@@ -49,6 +59,19 @@ def precision(dtype):
         yield
     finally:
         _POLICY["compute_dtype"] = old
+
+
+@contextmanager
+def thread_precision(dtype):
+    """Pin the calling thread's compute dtype for the block: the global
+    policy, and other threads' changes to it, do not reach this thread's
+    calls until the block ends."""
+    old = getattr(_THREAD, "dtype", None)
+    _THREAD.dtype = _parse(dtype)
+    try:
+        yield
+    finally:
+        _THREAD.dtype = old
 
 
 def _mm_plain(a: torch.Tensor, b: torch.Tensor, d: torch.dtype) -> torch.Tensor:
@@ -65,7 +88,7 @@ class _PolicyMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b):
-        d = _POLICY["compute_dtype"]
+        d = compute_dtype()
         ctx.save_for_backward(a, b)
         ctx.compute_dtype = d
         return _mm_plain(a, b, d)

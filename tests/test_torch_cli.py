@@ -18,6 +18,9 @@ import contextlib
 import io
 import json
 import os
+import threading
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -33,6 +36,7 @@ from controllable_xgating_torch import bridge
 from controllable_xgating_torch.cli import caption as t_caption
 from controllable_xgating_torch.cli import common as t_common
 from controllable_xgating_torch.cli import eval as t_eval
+from controllable_xgating_torch.cli import serve as t_serve
 from controllable_xgating_torch.cli import train as t_train
 from controllable_xgating_torch.data import features as t_features
 from controllable_xgating_torch.ops.precision import compute_dtype
@@ -230,8 +234,8 @@ def test_cli_scopes_the_compute_policy(fixture):
     assert compute_dtype() == torch.float32
 
 
-@pytest.mark.parametrize("main", [t_caption.main, t_eval.main, t_train.main],
-                         ids=["caption", "eval", "train"])
+@pytest.mark.parametrize("main", [t_caption.main, t_eval.main, t_train.main, t_serve.main],
+                         ids=["caption", "eval", "train", "serve"])
 def test_cli_without_a_card_refuses_cuda(fixture, monkeypatch, capsys, main, tmp_path):
     """--device defaults to cuda; without a CUDA device the CLI exits
     non-zero with a message and does not run on the CPU."""
@@ -253,6 +257,7 @@ DEFERRED = [
     pytest.param("train", ["--parallel.num_devices", "4"], "A7", id="train-num_devices"),
     pytest.param("caption", ["--video", "video0", "--profile", "prof"], "A10", id="caption-profile"),
     pytest.param("train", ["--debug_nans"], "A10", id="train-debug_nans"),
+    pytest.param("serve", ["--devices", "2"], "A7", id="serve-devices"),
 ]
 
 
@@ -261,12 +266,74 @@ def test_cli_refuses_what_is_not_ported(fixture, capsys, tmp_path, cli, args, na
     """A flag of the JAX CLIs that belongs to a later ROADMAP item exits 1
     with a message naming the item; none is silently ignored."""
     data, _, tdir = fixture
-    main = {"caption": t_caption.main, "eval": t_eval.main, "train": t_train.main}[cli]
+    main = {"caption": t_caption.main, "eval": t_eval.main, "train": t_train.main,
+            "serve": t_serve.main}[cli]
     ck = str(tmp_path) if cli == "train" else tdir
     with pytest.raises(SystemExit) as e:
         main(["--data_dir", data, "--checkpoint_dir", ck, *args, *SMALL, *PORT_FLAGS])
     assert e.value.code == 1
     assert names in capsys.readouterr().err
+    assert compute_dtype() == torch.float32
+
+
+def http_json(url, payload=None):
+    """(status, JSON body) of a GET, or of a POST of `payload`."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        return 200, json.loads(urllib.request.urlopen(req, timeout=120).read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@pytest.mark.parametrize("mode,dtype", [("greedy", "float32"), ("beam", "bfloat16")])
+def test_serve_cli_end_to_end(fixture, jax_captions, mode, dtype):
+    """`cli.serve.start` on port 0 on the fixture corpus: /caption by video
+    id answers `cli.caption`'s caption and POS sequence under the same
+    flags (beam: `--beam_size 3`, eval.beam_size's width), with user tags
+    the JAX caption CLI's controlled caption; an unknown id is 400; /stats
+    counts the requests. The engine serves under the compute dtype the
+    CLI picked (here bf16 on the CPU when asked), while the process's
+    policy is left as found."""
+    data, _, tdir = fixture
+    flags = ["--compute_dtype", dtype, *SMALL, *PORT_FLAGS]
+    want = json_lines(run_cli(t_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, "--video", "video3",
+        *(["--beam_size", "3"] if mode == "beam" else []), *flags]))[0]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        httpd, engine = t_serve.start([
+            "--data_dir", data, "--checkpoint_dir", tdir, "--port", "0", "--mode", mode,
+            "--buckets", "1,2", "--max_wait_ms", "2", *flags])
+    assert compute_dtype() == torch.float32
+    events = [e["event"] for e in json_lines(buf.getvalue())]
+    assert events == ["warmup", "serving"]
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, resp = http_json(base + "/caption", {"video": "video3"})
+        assert code == 200 and resp["controlled"] is False
+        assert (resp["caption"], resp["pos_sequence"]) == (want["caption"], want["pos_sequence"])
+        assert (resp["score"] is None) == (mode == "greedy")
+        n = 1
+        if mode == "greedy":
+            tags = "DT NN VBZ VBG NN"
+            code, resp = http_json(base + "/caption", {"video": "video0", "pos_tags": tags})
+            assert code == 200 and resp["controlled"] is True
+            assert resp["caption"] == jax_captions["pos_tags"][0]["caption"]
+            assert resp["pos_sequence"] == jax_captions["pos_tags"][0]["pos_sequence"]
+            n += 1
+        code, resp = http_json(base + "/caption", {"video": "nope"})
+        assert code == 400 and "nope" in resp["error"]
+        code, stats = http_json(base + "/stats")
+        assert code == 200 and stats["requests"] == n and stats["mode"] == mode
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close()
+        t.join(30)
+    assert not t.is_alive()
     assert compute_dtype() == torch.float32
 
 

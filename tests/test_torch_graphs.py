@@ -406,3 +406,66 @@ def test_copy_tree_refuses_other_shapes():
                 {"a": [torch.ones(2)], "n": 3}):
         with pytest.raises(ValueError):
             graphs.copy_tree(dst, bad)
+
+
+# --- keys held for a serving engine's life ---
+
+
+class CountedLoop(graphs.StepLoop):
+    """A loop whose key is its number (nothing to step)."""
+
+    kind = "counted"
+
+    def __init__(self, i: int):
+        self.i, self.device = i, torch.device("cpu")
+
+    def key_options(self) -> tuple:
+        return (self.i,)
+
+    def prepare(self) -> dict:
+        return {}
+
+    def init(self) -> dict:
+        return {}
+
+    def finish(self, carry: dict) -> int:
+        return self.i
+
+
+def test_held_keys_are_never_evicted(monkeypatch):
+    """Keys a thread runs inside `adding_to(keys)` join `keys`; while
+    `keys` is held they are never evicted and do not count against
+    MAX_KEYS (a second round over them captures nothing, whatever ran in
+    between); released, they are ordinary LRU keys again. The capture and
+    replay are stubbed: the CPU has no CUDA graphs."""
+    captured = []
+
+    def capture(loop, inp, spans):
+        captured.append(loop.i)
+        loop.bind(inp)
+        return SimpleNamespace(loop=loop, carry={}, spans=[], capture_s=0.0, pool_bytes=0)
+
+    monkeypatch.setattr(graphs, "resolve_mode", lambda *a: "graphs")
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(graphs, "_replay", lambda entry, early_stop: 0)
+    monkeypatch.setattr(graphs, "MAX_KEYS", 2)
+    graphs.clear()
+    keys: set = set()
+    graphs.hold(keys)
+    try:
+        with graphs.adding_to(keys):
+            assert [graphs.run(CountedLoop(i), 4, False) for i in (0, 1, 2)] == [0, 1, 2]
+        for i in (3, 4, 5, 6):  # another caller's keys: an LRU of MAX_KEYS
+            graphs.run(CountedLoop(i), 4, False)
+        assert captured == [0, 1, 2, 3, 4, 5, 6] and len(keys) == 3
+        assert len(graphs.cache_info()) == 3 + graphs.MAX_KEYS
+        with graphs.adding_to(keys):
+            for i in (0, 1, 2):
+                graphs.run(CountedLoop(i), 4, False)
+        graphs.run(CountedLoop(3), 4, False)  # evicted while unheld: captured again
+        assert captured == [0, 1, 2, 3, 4, 5, 6, 3]
+    finally:
+        graphs.release(keys)
+        graphs.LAST.clear()
+    assert len(graphs.cache_info()) == graphs.MAX_KEYS
+    graphs.clear()
