@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's captioning (its decode loops as replayed CUDA
 graphs and as eager loops), quantized-decoding, ensemble and diverse-beam,
-XE-training and SCST paths, its three command-line entry points and its
-serving path once on one NVIDIA GPU.
+XE-training and SCST paths, its command-line entry points, its serving
+path and its own corpus -> train -> eval -> controllability study once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -138,6 +139,24 @@ Phases, each fatal on failure:
      bucket, busy share, idle gaps between batches) and an open loop at
      1.5x the 64-client rate with 200 ms deadlines (goodput, late
      completions, predictive sheds);
+  11. the port's own user path on a corpus it makes (`study_phase`, in
+     build/chip_smoke_study): `cli.prepro --fixtures` with the flagship
+     recipe's corpus (600 videos x 26 frames at MSR-VTT width, captions
+     of at most 20 tokens, 8 per video), `cli.train --stage pos` (8
+     epochs) then `--stage caption` from it (40 epochs) at the recipe's
+     widths under bf16 (each stage's loss must fall; K1-K3 in the val
+     evals, no K5: the corpus's 81 words are under its V >= 2048 gate),
+     `cli.eval --beam_size 5` on the test split (K1-K4); on the trained
+     checkpoint under f32 the kernels against the plain path for beam 5
+     and greedy, free and under a template (>= 98% of the test videos
+     each); the
+     early exit of beam 5 and greedy graphed against eager (tokens
+     equal; wall, device ms, busy share, chunks replayed, caption
+     length); the int8 projection (K7) against bf16 (printed only);
+     `tools.controllability_eval` with two templates (K1-K3) and
+     `cli.caption` of one test video free (K1-K3) and with `--pos_tags`
+     (no K2); `cli.score --per_video --bootstrap 200` on the eval's
+     captions (its metrics the eval's);
 then print every kernel's device microseconds per launch beside its
 bound, one JSON line of kernel results (eight kernels, each with its
 launches on its path, bound and times) and, last, one JSON line
@@ -1162,6 +1181,40 @@ def write_cli_corpus(root: str, cfg, seed: int) -> None:
                max_pos_len=MAX_LEN, seqs_per_video=s).save(os.path.join(root, "info.json"))
 
 
+def counted_cli(label: str, main, argv: list, counts: dict, want=(), absent=()):
+    """One CLI run through `main(argv)` with its launches counted (set to 0
+    before, read after, into `counts[label]`): (stdout, wall s). Fails the
+    script where the CLI exits, where a kernel of `want` did not launch or
+    one of `absent` did, or where the CLI left the process's compute
+    policy changed."""
+    import contextlib
+    import io
+
+    import torch
+
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.precision import compute_dtype
+
+    before = compute_dtype()
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    except SystemExit as e:
+        fail(f"{label}: exited {e.code}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = counts[label] = kernels.launch_counts()
+    print(f"{label} launches {got}")
+    if [n for n in want if not got[n]] or [n for n in absent if got[n]]:
+        fail(f"{label}: expected launches of {list(want)} and none of {list(absent)}: {got}")
+    if compute_dtype() != before:
+        fail(f"{label}: left the compute policy at {compute_dtype()}")
+    return buf.getvalue(), dt
+
+
 def cli_phase(dev, cfg) -> dict:
     """The three entry points users run, each through its `main(argv)` on
     the card (the CLIs' default: bf16 policy, kernels on), with the launch
@@ -1176,8 +1229,6 @@ def cli_phase(dev, cfg) -> dict:
     (the same output) and --nbest 10 (wider than K4's k <= 8: no
     topk_tail); then caption once from the shell. Every metric must be
     finite. Returns the phase's rates and the library path's wall split."""
-    import contextlib
-    import io
     import shutil
 
     import torch
@@ -1188,8 +1239,7 @@ def cli_phase(dev, cfg) -> dict:
     from controllable_xgating_torch.cli.common import load_corpus, restore_params
     from controllable_xgating_torch.infer.beam import make_beam_caption_fn
     from controllable_xgating_torch.infer.evaluator import evaluate_split
-    from controllable_xgating_torch.ops import kernels
-    from controllable_xgating_torch.ops.precision import compute_dtype, precision
+    from controllable_xgating_torch.ops.precision import precision
 
     root = os.path.join(HERE, "build", "chip_smoke_cli")
     shutil.rmtree(root, ignore_errors=True)
@@ -1203,24 +1253,9 @@ def cli_phase(dev, cfg) -> dict:
 
     def run(label, main, argv, want=(), absent=()):
         """One CLI run with its launches counted: (stdout, wall s)."""
-        before = compute_dtype()
-        kernels.reset_launch_counts()
-        buf = io.StringIO()
-        t = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                main(base + argv)
-        except SystemExit as e:
-            fail(f"cli {label}: exited {e.code}")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        got = counts[label] = kernels.launch_counts()
-        print(f"cli {label} launches {got}")
-        if [n for n in want if not got[n]] or [n for n in absent if got[n]]:
-            fail(f"cli {label}: expected launches of {list(want)} and none of {list(absent)}: {got}")
-        if compute_dtype() != before:
-            fail(f"cli {label}: left the compute policy at {compute_dtype()}")
-        return buf.getvalue(), dt
+        res = counted_cli(f"cli {label}", main, base + argv, counts, want, absent)
+        counts[label] = counts.pop(f"cli {label}")
+        return res
 
     def finite(label, metrics):
         if not metrics or not all(math.isfinite(v) for v in metrics.values()):
@@ -2485,6 +2520,286 @@ def serve_phase(params, cfg, store, info, dev) -> dict:
     return out
 
 
+# the port's own user path on a corpus it makes (examples/full_pipeline.sh)
+STUDY_PREPRO = ["--fixtures", "--fixture_videos", "600", "--fixture_frames", "26",
+                "--fixture_app_dim", "1536", "--fixture_motion_dim", "1024",
+                "--max_caption_len", "20", "--seqs_per_video", "8"]
+STUDY_COMMON = ["--compute_dtype", "bfloat16", "--model.hidden_dim", "512",
+                "--model.embed_dim", "512", "--model.attn_dim", "512",
+                "--model.pos_embed_dim", "512", "--model.num_frames", "26",
+                "--data.batch_size", "64", "--data.caps_per_video_train", "4",
+                "--train.lr_decay_every_epochs", "40", "--train.log_every_steps", "1",
+                "--eval.max_decode_len", "20"]
+STUDY_EPOCHS = {"pos": 8, "caption": 40}  # the recipe's
+STUDY_LR = {"pos": "1e-3", "caption": "2e-3"}
+STUDY_TEMPLATES = "EX VBZ DT NN VBG NN;DT NN VBZ NN"
+STUDY_TAGS = "DT NN VBZ VBG IN DT NN"
+STUDY_VIDEO = "video590"  # a test video of the 600
+
+
+def caption_lengths(tokens) -> list:
+    """Words per caption: the tokens before the first EOS (or all)."""
+    import numpy as np
+
+    from controllable_xgating_torch.data.vocab import EOS
+
+    t = np.asarray(tokens.cpu())
+    ends = np.where((t == EOS).any(1), (t == EOS).argmax(1), t.shape[1])
+    return ends.tolist()
+
+
+def study_phase(dev) -> dict:
+    """The port's own user path on a corpus it makes, in a directory of its
+    own: `cli.prepro --fixtures` (the flagship recipe's 600 videos at
+    MSR-VTT width), `cli.train --stage pos` then `--stage caption` from it
+    (bf16, the recipe's widths and epochs), `cli.eval --beam_size 5` on
+    the test split; on the trained checkpoint the kernels against the
+    plain path under f32 for beam 5 and greedy, free and under a template
+    (>= 98% of the test videos each); the early exit, graphed against
+    eager (tokens equal; wall, device ms, busy share, chunks replayed,
+    caption length); the int8 projection (K7) against bf16 (printed);
+    `tools.controllability_eval` with two templates and `cli.caption` of
+    one video free and with tags; `cli.score --per_video --bootstrap 200`
+    on the eval's captions. Returns the phase's numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.cli import caption as cli_caption
+    from controllable_xgating_torch.cli import eval as cli_eval
+    from controllable_xgating_torch.cli import prepro as cli_prepro
+    from controllable_xgating_torch.cli import score as cli_score
+    from controllable_xgating_torch.cli import train as cli_train
+    from controllable_xgating_torch.cli.common import load_corpus, restore_params
+    from controllable_xgating_torch.data.vocab import pad_encode
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.infer.beam import beam_search
+    from controllable_xgating_torch.infer.greedy import greedy_decode
+    from controllable_xgating_torch.models.captioner import encode_for_inference
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_decode_graphs
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.tools import controllability_eval
+    from controllable_xgating_torch.utils.config import load_config
+    from controllable_xgating_torch.utils.profiling import call_device_ms
+
+    root = os.path.join(HERE, "build", "chip_smoke_study")
+    shutil.rmtree(root, ignore_errors=True)
+    data, ck = os.path.join(root, "corpus"), os.path.join(root, "ck")
+    counts, out = {}, {}
+
+    # 1. the corpus, made by the port
+    text, dt = counted_cli("study prepro", cli_prepro.main, ["--out", data, *STUDY_PREPRO], counts)
+    made = json.loads(text.strip().splitlines()[-1])
+    out["prepro_s"] = dt
+    print(f"study prepro [{' '.join(STUDY_PREPRO)}]: {dt:.2f} s; vocab {made['vocab_size']}, POS "
+          f"vocab {made['pos_vocab_size']}, splits {json.dumps(made['splits'])}")
+    if any(counts["study prepro"].values()):
+        fail(f"study prepro launched kernels: {counts['study prepro']}")
+    n_train = made["splits"]["train"]
+
+    # 2. training: the POS stage, then the caption stage from it. The val
+    # eval launches K1-K3; K5 does not: the corpus's vocabulary is below its
+    # V >= 2048 gate (`train/xe.py`, as the reference's)
+    common = ["--data_dir", data, *STUDY_COMMON]
+    init = []
+    for stage in ("pos", "caption"):
+        epochs = STUDY_EPOCHS[stage]
+        _, dt = counted_cli(
+            f"study train-{stage}", cli_train.main,
+            ["--checkpoint_dir", ck, "--stage", stage, "--epochs", str(epochs), *init,
+             "--train.lr", STUDY_LR[stage], *common],
+            counts, CLI_CAPTION_KERNELS, ("topk_tail", "xent_fwd", "xent_bwd"))
+        with open(os.path.join(ck, stage, "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        by_epoch = {}
+        for e in log:
+            if "loss" in e:
+                by_epoch.setdefault(e["epoch"], []).append(e["loss"])
+        first, last = (float(np.mean(by_epoch[e])) for e in (min(by_epoch), max(by_epoch)))
+        val = [{k[4:]: v for k, v in e.items() if k.startswith("val_")} for e in log
+               if "val_CIDEr" in e]
+        rate = n_train * epochs / dt
+        out[f"train_{stage}"] = {"epochs": epochs, "wall_s": dt, "videos_s": rate,
+                                 "loss_first_epoch": first, "loss_last_epoch": last,
+                                 "val_last": val[-1] if val else None}
+        print(f"study train --stage {stage} [{epochs} epochs of {n_train} videos, "
+              f"{' '.join(STUDY_COMMON)}, {CARD}]: {rate:.1f} train videos/s over the whole command "
+              f"({dt:.1f} s, a greedy val eval of {made['splits']['val']} each epoch); loss, "
+              f"first epoch {first:.4f}, last {last:.4f}; last val {json.dumps(val[-1])}")
+        if not (math.isfinite(last) and last < first):
+            fail(f"study train --stage {stage}: the loss did not fall ({first} -> {last})")
+        init = ["--init_from", os.path.join(ck, stage)]
+    if STUDY_EPOCHS["caption"] < 40:
+        print(f"study reduced: caption stage {STUDY_EPOCHS['caption']} of the recipe's 40 epochs")
+    best = os.path.join(ck, "caption")
+
+    # 3. eval beam 5 on the test split through the CLI
+    n_test = made["splits"]["test"]
+    eval_json = os.path.join(root, "eval_test.json")
+    _, dt = counted_cli("study eval-beam-5", cli_eval.main,
+                        ["--checkpoint_dir", best, "--split", "test", "--beam_size", "5",
+                         "--out", eval_json, *common],
+                        counts, (*CLI_CAPTION_KERNELS, "topk_tail"))
+    with open(eval_json) as f:
+        res = json.load(f)
+    if len(res["captions"]) != n_test or not all(math.isfinite(v) for v in res["metrics"].values()):
+        fail(f"study eval-beam-5: {len(res['captions'])} captions, metrics {res['metrics']}")
+    out["eval"] = {"captions_s": n_test / dt, "metrics": res["metrics"]}
+    print(f"study eval [beam 5, {n_test} test videos, bf16, {CARD}]: {n_test / dt:.2f} "
+          f"captions/s over the whole command ({dt:.2f} s); metrics {json.dumps(res['metrics'])}")
+
+    # the trained checkpoint in this process, with its test split
+    cfg = load_config(None, {k[2:]: v for k, v in zip(STUDY_COMMON[::2], STUDY_COMMON[1::2])
+                             if "." in k})
+    info, _, store, cfg = load_corpus(data, cfg)
+    idx, steps = np.asarray(info.splits["test"]), cfg.eval.max_decode_len
+    app, mot = (torch.as_tensor(x, device=dev) for x in store.get_batch(idx))
+    mask = torch.as_tensor(store.frame_mask(idx), device=dev)
+    tmpl = torch.as_tensor(np.array([pad_encode(info.pos_vocab, STUDY_TAGS.split(),
+                                                cfg.model.max_pos_len)] * len(idx)), device=dev)
+
+    def decode(params, beam, fused, tags=None, vq=None):
+        with torch.inference_mode():
+            ctx, summary, _ = encode_for_inference(
+                params, app, mot, mask, pos_tags=tags, max_pos_len=cfg.model.max_pos_len,
+                fused=fused, early_stop=True)
+            if beam:
+                return beam_search(params.decoder, ctx, summary, K, steps, fused=fused,
+                                   early_stop=True, vocab_q=vq)[0]
+            return greedy_decode(params.decoder, ctx, summary, steps, fused=fused,
+                                 early_stop=True, vocab_q=vq)
+
+    # kernels against the plain path on trained weights, f32
+    agree = {}
+    with precision("float32"):
+        params = restore_params(best, cfg, dev)
+        for beam, name in ((True, "beam-5"), (False, "greedy")):
+            for tags, how in ((None, "free"), (tmpl, "controlled")):
+                a, b = decode(params, beam, True, tags), decode(params, beam, False, tags)
+                agree[f"{name} {how}"] = (a == b).all(1).float().mean().item()
+    out["agreement_f32"] = agree
+    print(f"study kernels vs plain [float32, trained weights, {n_test} test videos; controlled: "
+          f"\"{STUDY_TAGS}\"]: caption agreement {json.dumps(agree)}")
+    low = {k: v for k, v in agree.items() if v < AGREE_MIN}
+    if low:
+        fail(f"study: f32 caption agreement below {AGREE_MIN}: {low}")
+
+    # 4. the early exit: graphed against eager, bf16, kernels on
+    def run(fn, on: bool):
+        set_decode_graphs(None if on else False)
+        try:
+            tokens = fn()
+        finally:
+            set_decode_graphs(None)
+        torch.cuda.synchronize()
+        return tokens
+
+    with precision("bfloat16"):
+        params = restore_params(best, cfg, dev)
+        exits = {}
+        for beam, name in ((True, "beam-5"), (False, "greedy")):
+            fn = lambda: decode(params, beam, True)
+            eager, graphed = run(fn, False), run(fn, True)
+            if not torch.equal(eager, graphed):
+                fail(f"study early exit {name}: graphed tokens differ from the eager loop's")
+            chunks = [graphs.LAST["chunks"], graphs.LAST["of"]]
+            walls = {"graphed": [], "eager": []}
+            for i in range(5):
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    t = time.perf_counter()
+                    run(fn, on)
+                    walls["graphed" if on else "eager"].append((time.perf_counter() - t) * 1e3)
+            lengths = caption_lengths(graphed)
+            row = {"chunks": chunks, "mean_words": float(np.mean(lengths)),
+                   "max_words": int(max(lengths))}
+            for key, on in (("graphed", True), ("eager", False)):
+                d = call_device_ms(lambda: run(fn, on))
+                wall = float(np.median(walls[key]))
+                dev_ms = d["profiler"] if d["kernels_seen"] else d["events"]
+                row[key] = {"wall_ms": wall, "walls_ms": walls[key], "device_ms": dev_ms,
+                            "device_from": "profiler" if d["kernels_seen"] else "events",
+                            "busy": dev_ms / wall, "captions_s": len(idx) / wall * 1e3}
+            exits[name] = row
+            g, e = row["graphed"], row["eager"]
+            print(f"study early exit {name} [bf16, {len(idx)} test videos, max {steps} steps, "
+                  f"{CARD}]: tokens equal graphed and eager; wall {g['wall_ms']:.2f} ms graphed "
+                  f"vs {e['wall_ms']:.2f} eager (median of 5 in turns); device "
+                  f"{g['device_ms']:.2f} vs {e['device_ms']:.2f} ms ({g['device_from']}); busy "
+                  f"{g['busy']:.3f} vs {e['busy']:.3f}; chunks replayed {chunks[0]} of "
+                  f"{chunks[1]}; words per caption mean {row['mean_words']:.2f}, "
+                  f"max {row['max_words']}")
+        out["early_exit"] = exits
+
+        # 5. the int8 projection (K7) on trained weights against bf16
+        vq = quantize_vocab_proj(params.decoder.w_out, params.decoder.b_out)
+        k7 = {}
+        for beam, name in ((False, "greedy"), (True, "beam-5")):
+            kernels.reset_launch_counts()
+            q = decode(params, beam, True, vq=vq)
+            torch.cuda.synchronize()
+            n7 = kernels.launch_counts()["int8_vocab"]
+            if not n7:
+                fail(f"study int8 {name}: int8_vocab never launched")
+            k7[name] = {"agreement": (q == decode(params, beam, True)).all(1).float().mean().item(),
+                        "int8_vocab_launches": n7}
+        out["int8_vs_bf16"] = k7
+        print(f"study int8 projection (K7) vs bf16 [trained weights, {len(idx)} test videos, not "
+              f"gated]: {json.dumps(k7)}")
+
+    # 6. controllability: the study tool, then one video free and with tags
+    ctrl_out, dt = counted_cli(
+        "study controllability", controllability_eval.main,
+        ["--data_dir", data, "--checkpoint_dir", best, "--templates", STUDY_TEMPLATES,
+         *STUDY_COMMON], counts, CLI_CAPTION_KERNELS, ("topk_tail",))
+    ctrl = json.loads(ctrl_out)
+    study = {r["template"]: r["agreement_by_mode"] for r in ctrl["per_template"]}
+    out["controllability"] = {"per_template": study, "wall_s": dt,
+                              "mean_free": ctrl["mean_free_run_tag_agreement"],
+                              "mean_controlled": ctrl["mean_controlled_tag_agreement"]}
+    print(f"study controllability [{n_test} test videos, greedy, bf16, {dt:.2f} s]: per template "
+          f"(free-run / controlled tag agreement, both modes) {json.dumps(study)}; means "
+          f"{ctrl['mean_free_run_tag_agreement']} / {ctrl['mean_controlled_tag_agreement']}; "
+          f"examples {json.dumps(ctrl['per_template'][0]['examples'][:2])}")
+    cap = ["--data_dir", data, "--checkpoint_dir", best, "--video", STUDY_VIDEO, *STUDY_COMMON]
+    lines = {}
+    for how, extra, want, absent in (("free", [], CLI_CAPTION_KERNELS, ("topk_tail",)),
+                                     ("tags", ["--pos_tags", STUDY_TAGS], ("xgate", "attn_lstm"),
+                                      ("pos_lstm", "topk_tail"))):
+        text, _ = counted_cli(f"study caption-{how}", cli_caption.main, cap + extra, counts,
+                              want, absent)
+        lines[how] = json.loads(text.strip().splitlines()[-1])
+    if lines["tags"]["pos_sequence"] != STUDY_TAGS or not lines["tags"]["controlled"]:
+        fail(f"study caption --pos_tags: {lines['tags']}")
+    out["caption"] = {STUDY_VIDEO: lines}
+    print(f"study caption {STUDY_VIDEO}: free {json.dumps(lines['free'])}; --pos_tags "
+          f"\"{STUDY_TAGS}\": {json.dumps(lines['tags'])}")
+
+    # 7. the scorer on the eval's captions, with its bootstrap
+    per_video = os.path.join(root, "per_video.json")
+    text, dt = counted_cli("study score", cli_score.main,
+                           ["--candidates", eval_json, "--data_dir", data, "--split", "test",
+                            "--per_video", per_video, "--bootstrap", "200"], counts)
+    scored = json.loads(text)
+    with open(per_video) as f:
+        n_per = len(json.load(f))
+    if scored["n_scored"] != n_test or n_per != n_test or any(counts["study score"].values()):
+        fail(f"study score: {scored['n_scored']} scored, {n_per} per-video rows, launches "
+             f"{counts['study score']}")
+    for m, v in scored["metrics"].items():
+        if m in res["metrics"] and not math.isclose(v, res["metrics"][m], rel_tol=1e-9):
+            fail(f"study score: {m} {v} differs from the eval's {res['metrics'][m]}")
+    out["score"] = {"wall_s": dt, "ci95": scored["bootstrap"]["ci95"]}
+    print(f"study score [--per_video --bootstrap 200, {n_test} videos, host, {dt:.2f} s]: "
+          f"metrics {json.dumps(scored['metrics'])}; 95% intervals "
+          f"{json.dumps(scored['bootstrap']['ci95'])}")
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = counts
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2611,6 +2926,10 @@ def main() -> None:
     # HTTP front end under load
     serve_rows = serve_phase(params, cfg, store, info, dev)
 
+    # the port's own user path on a corpus it makes: prepro, train, eval,
+    # the early exit and the controllability study on trained weights
+    study = study_phase(dev)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -2651,6 +2970,7 @@ def main() -> None:
     print("cli phase (host clock, s and /s): " + json.dumps(cli))
     print("graphs phase (graphed vs eager, bf16): " + json.dumps(graph_rows))
     print("serve phase: " + json.dumps(serve_rows, default=str))
+    print("study phase: " + json.dumps(study))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ their eager loops, on the card.
 Marked `gpu`: every test skips without a CUDA device. For each graphed
 path (greedy, its `lanes` opt-in and `vocab_q`; beam on each tail, with
 `return_all` and the length penalty, with `vocab_q`; diverse beam; an
-ensemble's beam and greedy; the POS rollout), under the f32 and the bf16
-policy, through the kernels: the graphed tokens equal the eager loop's
+ensemble's beam and greedy; the POS rollout; the controllability study's
+free and controlled call), under the f32 and the bf16 policy, through
+the kernels: the graphed tokens equal the eager loop's
 exactly and scores are within rtol 1e-6 (the same kernels on the same
 operands: only the launch mechanism differs), on the capturing call and
 on a replay; a call on other inputs equals eager (the static buffers are
@@ -248,3 +249,42 @@ def test_a_failed_capture_raises_and_caches_nothing(dev, monkeypatch):
     assert kernels.launch_counts() == encoding and encoding["attn_lstm"] == 0
     monkeypatch.undo()
     same(call("beam-lanes", [p], x, True), want)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_controllability_study_graphed_equals_eager(dev, policy):
+    """The study's device call (`tools/controllability_eval.py`), free and
+    under a template, replayed as graphs against the eager loops: tokens
+    equal; a free-run call launches K1, K2 and K3, a controlled one K1 and
+    K3 and no POS step."""
+    from types import SimpleNamespace
+
+    from controllable_xgating_torch.ops.dispatch import decode_graphs_setting, set_decode_graphs
+    from controllable_xgating_torch.tools.controllability_eval import make_study_decoder
+
+    cfg = SimpleNamespace(model=SimpleNamespace(max_pos_len=MAX_POS),
+                          eval=SimpleNamespace(max_decode_len=MAX_LEN))
+    run = make_study_decoder(model(dev), cfg)
+    app, mot, _ = inputs(dev)
+    gd = torch.Generator(device=dev).manual_seed(7)
+    tmpl = torch.randint(4, 20, (8, MAX_POS), generator=gd, device=dev)
+    tmpl[:, 6:] = 0  # PAD after six tags
+    prev = decode_graphs_setting()
+    try:
+        with precision(policy):
+            outs = {}
+            for graphed in (False, True, True):  # eager, then capture and replay
+                set_decode_graphs(None if graphed else False)
+                for name, tags in (("free", None), ("controlled", tmpl)):
+                    kernels.reset_launch_counts()
+                    tokens = run(app, mot, tags)
+                    torch.cuda.synchronize()
+                    got = kernels.launch_counts()
+                    assert got["xgate"] and got["attn_lstm"], got
+                    assert bool(got["pos_lstm"]) == (name == "free"), got
+                    assert tokens.shape == (8, MAX_LEN)
+                    if (name, False) in outs:
+                        assert torch.equal(tokens, outs[name, False]), (name, graphed)
+                    outs[name, graphed] = tokens
+    finally:
+        set_decode_graphs(prev)
