@@ -2,8 +2,8 @@
 """Drive the PyTorch port's captioning (its decode loops as replayed CUDA
 graphs and as eager loops), quantized-decoding, ensemble and diverse-beam,
 XE-training and SCST paths, its command-line entry points, its serving
-path and its own corpus -> train -> eval -> controllability study once on
-one NVIDIA GPU.
+path, its own corpus -> train -> eval -> controllability study and its
+data-parallel path once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -157,7 +157,23 @@ Phases, each fatal on failure:
      `cli.caption` of one test video free (K1-K3) and with `--pos_tags`
      (no K2); `cli.score --per_video --bootstrap 200` on the eval's
      captions (its metrics the eval's);
-then print every kernel's device microseconds per launch beside its
+  12. data parallelism (`dp_phase`, in build/chip_smoke_dp): (a)
+     `cli.train` under the CXG_* variables at world size 1 over NCCL,
+     equal bit for bit under f32 to the run without a process group;
+     (b) three XE steps of the train phase's batches as two ranks over
+     gloo (on the one card) against one rank: f32 loss rtol 1e-5,
+     parameters rtol 2e-4 / atol 1e-5, K5 launched on each rank; bf16
+     printed with the step ms, the all-reduce ms and the gradient bytes;
+     one SCST step's greedy reward rtol 1e-4; (c) with two or more
+     cards, (b) over NCCL with 2 (or 4) ranks and `cli.train
+     --parallel.num_devices N` against one device, else printed as
+     skipped; (d) `evaluate_split` beam 5 over a mesh of two entries on
+     the 256 videos: each block's tokens equal the offline call at its
+     batch, f32 agreement with the unsharded call >= 98%; (e) a mesh
+     engine at buckets (2, 8): every served block equal to the offline
+     call on it, with its launches;
+then print every kernel's device microseconds per launch ("not
+measured" where the profiler kept none of its events) beside its
 bound, one JSON line of kernel results (eight kernels, each with its
 launches on its path, bound and times) and, last, one JSON line
 `{"ok": true, "device": {...}}`.
@@ -217,10 +233,16 @@ CARD = "the card"  # its name and power limit, from nvidia-smi in main
 DEVICE_US: dict = {}
 
 
-def kernel_device_us(fn) -> float:
+def kernel_device_us(fn):
+    """Device us per call in the port's kernels, or None: not measured
+    (the profiler kept none of their events, twice)."""
     from controllable_xgating_torch.utils.profiling import kernel_device_us as measure
 
     return measure(fn)
+
+
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f}"
 
 
 def kernel_device_split(fn) -> dict:
@@ -385,8 +407,8 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
         dev_us = ""
         if policy == "bfloat16":
             split = kernel_device_split(kern)
-            DEVICE_US[name] = sum(split.values())
-            dev_us = f"  device {DEVICE_US[name]:.2f} us per launch"
+            DEVICE_US[name] = sum(split.values()) if split else None
+            dev_us = f"  device {fmt_us(DEVICE_US[name])} us per launch"
             if len(split) > 1:  # a wrapper call of several kernels
                 dev_us += " (" + ", ".join(f"{n} {us:.2f}" for n, us in split.items()) + ")"
         print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
@@ -444,7 +466,7 @@ def check_greedy_rows(params, dev, beam: dict) -> None:
             fail(f"{name} [bfloat16, {B} rows]: max |kernel - plain| = {err:.3e} outside {tol}")
         print(f"kernel {name} [bfloat16, {B} rows (greedy)]: max_abs_err {err:.3e}  kernel "
               f"{cuda_ms(kern):.4f} ms  plain {cuda_ms(plain):.4f} ms  device "
-              f"{kernel_device_us(kern):.2f} us per launch; at {B * K} rows (beam-5) "
+              f"{fmt_us(kernel_device_us(kern))} us per launch; at {B * K} rows (beam-5) "
               f"kernel {beam[name][1]:.4f} ms")
 
 
@@ -506,8 +528,8 @@ def check_int8(params, dev) -> dict:
         if rows == B * K:
             DEVICE_US["int8_vocab"] = dev_us
         print(f"kernel int8_vocab [{rows}x{k_dim} -> {VOCAB}]: max_abs_err {err:.3e}  "
-              f"kernel {out[rows][1]:.4f} ms  plain {out[rows][2]:.4f} ms  device {dev_us:.2f} us "
-              f"per launch  bf16 projection {out[rows][3]:.4f} ms  "
+              f"kernel {out[rows][1]:.4f} ms  plain {out[rows][2]:.4f} ms  device "
+              f"{fmt_us(dev_us)} us per launch  bf16 projection {out[rows][3]:.4f} ms  "
               f"bound {int8_bound(rows, k_dim, VOCAB)}")
     return out
 
@@ -858,7 +880,7 @@ def check_xent(dev, n: int, v: int, smoothing: float = 0.1) -> dict:
     DEVICE_US["xent_bwd"] = kernel_device_us(lambda: xent_bwd_kernel(x, t, lse, *cot))
     for name, (e, ms, plain_ms, lib_ms) in out.items():
         print(f"kernel {name} [float32, {n}x{v}]: max_abs_err {e:.3e}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  device {DEVICE_US[name]:.2f} us per launch  "
+              f"plain {plain_ms:.4f} ms  device {fmt_us(DEVICE_US[name])} us per launch  "
               f"F.cross_entropy {lib_ms:.4f} ms")
     # each launch's own device time (a sum over launches can drop events):
     # the median of 10, with the number of launches the profiler kept
@@ -1984,8 +2006,8 @@ def check_serve_kernels(params, dev) -> dict:
                     line = (f"kernel {label}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
                             f"plain {plain_ms:.4f} ms")
                     if policy == "bfloat16":
-                        us = sum(kernel_device_split(kern).values())
-                        line += (f"  device {us:.2f} us per launch (bound "
+                        us = kernel_device_us(kern)
+                        line += (f"  device {fmt_us(us)} us per launch (bound "
                                  f"{bounds[name][0] * 1e3:.2f} us, {bounds[name][1]})")
                         rows[f"{name}@{b}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                                "device_us": us, "bound_us": bounds[name][0] * 1e3}
@@ -2070,6 +2092,8 @@ def check_served_batches(eng, params, cfg, policy: str, reqs: list, controlled: 
     from controllable_xgating_torch.ops.precision import precision
 
     orig, calls = eng._fn, []
+    # the parameters of the device a block ran on (a mesh engine's copies)
+    params_on = (lambda d: params[d]) if isinstance(params, dict) else (lambda d: params)
     ledger = graphs.LaunchLedger()
 
     def recording(params_, *inputs):
@@ -2096,7 +2120,7 @@ def check_served_batches(eng, params, cfg, policy: str, reqs: list, controlled: 
     for inputs, packed, launches in calls:
         before = ledger.read()
         with precision(policy):
-            toks, tags, scores = serve_offline(params, cfg, inputs)
+            toks, tags, scores = serve_offline(params_on(inputs[0].device), cfg, inputs)
         torch.cuda.synchronize()
         want = ledger.since(before)
         got_scores = packed[:, -1].view(torch.float32)
@@ -2800,6 +2824,352 @@ def study_phase(dev) -> dict:
     return out
 
 
+# the data-parallel phase: XE steps of the train phase's batches, the
+# decode mesh's serving buckets
+DP_STEPS = 3
+DP_BUCKETS = (2, 8)
+DP_TRAIN = ("xent_fwd", "xent_bwd")
+DP_DECODE = ("xgate", "pos_lstm", "attn_lstm", "topk_tail")
+
+
+def dp_train_clis(data: str, runs: dict) -> dict:
+    """`cli.train --stage joint --epochs 1` under f32 on the CLI corpus at
+    `data`, once per entry of `runs` {name: (extra arguments, extra
+    environment)}, all at once, each into `<data>/../<name>` ->
+    {name: (its output, its `last` checkpoint, its logged steps)}; fails
+    where one exits."""
+    import torch
+
+    root = os.path.dirname(data)
+    cmd = [sys.executable, "-m", "controllable_xgating_torch.cli.train", "--data_dir", data,
+           "--config", os.path.join(HERE, "configs", "msrvtt.json"), "--stage", "joint",
+           "--epochs", "1", "--compute_dtype", "float32", "--train.log_every_steps", "1"]
+    env = dict(os.environ, PYTHONPATH=HERE, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               CXG_TIMEOUT_S="300")
+    procs = {name: subprocess.Popen(cmd + ["--checkpoint_dir", os.path.join(root, name), *args],
+                                    env=dict(env, **extra), stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, (args, extra) in runs.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=600)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, p in procs.items():
+        if p.returncode:
+            fail(f"dp cli.train [{name}] exited {p.returncode}: {outs[name][-2000:]}")
+    got = {}
+    for name in runs:
+        with open(os.path.join(root, name, "joint", "train_log.jsonl")) as f:
+            steps = [json.loads(line) for line in f if '"loss"' in line]
+        got[name] = (outs[name], torch.load(os.path.join(root, name, "joint", "last.pt"),
+                                            map_location="cpu", weights_only=True), steps)
+    return got
+
+
+def dp_cli_world_one(data: str) -> dict:
+    """(a) `dp_train_clis` as one process of a process group of one over
+    NCCL (the CXG_* variables) and without a group: their `last`
+    parameters must be equal bit for bit (an all-reduce of one rank
+    changes nothing)."""
+    import torch
+
+    from controllable_xgating_torch.parallel.distributed import free_port
+
+    t = time.perf_counter()
+    got = dp_train_clis(data, {
+        "nccl1": ([], {"CXG_COORDINATOR": f"127.0.0.1:{free_port()}", "CXG_NUM_PROCESSES": "1",
+                       "CXG_PROCESS_ID": "0"}),
+        "alone": (["--parallel.num_devices", "1"], {})})
+    wall = time.perf_counter() - t
+    (out, a, _), (alone_out, b, _) = got["nccl1"], got["alone"]
+    a, b = a["params"], b["params"]
+    if ("over nccl" not in out or "data-parallel over 1 devices on 1 processes" not in out
+            or "joined process group" in alone_out):
+        fail(f"dp (a): the NCCL run did not join a group of one: {out[-2000:]}")
+    differ = [n for n in b if not torch.equal(a[n], b[n])]
+    if differ:
+        fail(f"dp (a): world size 1 over NCCL differs from no group in {differ[:5]}")
+    print(f"dp (a) cli.train [float32, 1 epoch, 128 videos]: NCCL world size 1 == no process "
+          f"group, {len(b)} parameters bit for bit; both runs {wall:.1f} s at once; {CARD}")
+    return {"equal_params": len(b), "wall_s": wall}
+
+
+def dp_cli_cards(data: str, n: int) -> dict:
+    """(c) `dp_train_clis` with `--parallel.num_devices n` (the CLI starts
+    its n ranks, one per card, over NCCL) against one device: the logged
+    losses rtol 1e-5, and Adam's first moments, all parameters as one
+    vector, within a relative norm of 1e-5 (the parameters move by ~lr x
+    sign after two steps, so a near-cancelling gradient's sum order shows
+    there at ~lr; their difference is printed)."""
+    import torch
+
+    t = time.perf_counter()
+    got = dp_train_clis(data, {"cards": (["--parallel.num_devices", str(n)], {}),
+                               "alone": (["--parallel.num_devices", "1"], {})})
+    wall = time.perf_counter() - t
+    (out, a, la), (_, b, lb) = got["cards"], got["alone"]
+    if f"data-parallel over {n} devices on {n} processes" not in out:
+        fail(f"dp (c): cli.train did not start {n} ranks: {out[-2000:]}")
+    loss_err = max(abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(la, lb))
+    moments = lambda ck: torch.cat([v["exp_avg"].flatten() for _, v in
+                                    sorted(ck["opt_state"]["state"].items())])
+    merr = ((moments(a) - moments(b)).norm() / moments(b).norm()).item()
+    pa, pb = a["params"], b["params"]
+    worst = max(pb, key=lambda k: float((pa[k] - pb[k]).abs().max()))
+    maxd = float((pa[worst] - pb[worst]).abs().max())
+    print(f"dp (c) cli.train --parallel.num_devices {n} [float32, 1 epoch, 128 videos, NCCL] vs "
+          f"one device: {len(lb)} logged losses, max relative difference {loss_err:.3e}; relative "
+          f"norm of the Adam first-moment difference {merr:.3e}; max |param difference| "
+          f"{maxd:.3e} ({worst}); both runs {wall:.1f} s at once; {CARD}")
+    if len(la) != len(lb) or not lb or loss_err > 1e-5 or merr > 1e-5:
+        fail(f"dp (c): {n} cards differ from one device (losses {loss_err:.3e}, moments "
+             f"{merr:.3e})")
+    return {"loss_err": loss_err, "moment_err": merr, "max_param_diff": maxd, "wall_s": wall}
+
+
+def dp_rank_steps(cfg, policy: str, timed: int = 0, scst: bool = False) -> dict:
+    """`dryrun.train_steps` from `init_captioner(seed=0)` on the train
+    phase's first DP_STEPS batches of 64 x 5 (`make_train_corpus(seed=1)`,
+    `TrainBatchIterator(seed=0)`), or one SCST step on the first with
+    that corpus's references: what each rank of `dp_pair` runs, and its
+    one-rank reference. The batches are drawn here from their seeds, so a
+    rank's arguments stay small."""
+    import numpy as np
+
+    from controllable_xgating_torch.data.loader import TrainBatchIterator
+    from controllable_xgating_torch.parallel import dryrun
+
+    store, caps, pos, ncaps = make_train_corpus(cfg, seed=1)
+    it = iter(TrainBatchIterator(store, caps, pos, ncaps, np.arange(TRAIN_VIDEOS),
+                                 cfg.data.batch_size, cfg.data.caps_per_video_train, seed=0))
+    batches = [next(it) for _ in range(1 if scst else DP_STEPS)]
+    refs = (caps, ncaps, list(range(TRAIN_VIDEOS))) if scst else None
+    return dryrun.train_steps(0, cfg, batches, "joint", "cuda", policy, refs, timed)
+
+
+def dp_pair(cfg, backend: str, counts: dict, ranks: int = 2, env=None) -> dict:
+    """(b) / (c): DP_STEPS XE steps as `ranks` ranks over `backend` (with
+    `env` in their environment: (b) shows them the first card only)
+    against one
+    rank on the global batches (`dp_rank_steps`, dropout 0.5): f32 loss
+    rtol 1e-5 and parameters rtol 2e-4, atol 1e-5 (the JAX package's bar),
+    each rank launching K5 once a step; under bf16 the same, printed, with
+    5 timed steps (step ms, the all-reduce ms of the gradients' bytes);
+    then one SCST step: the greedy reward rtol 1e-4."""
+    import numpy as np
+
+    from controllable_xgating_torch.parallel import distributed
+
+    out = {}
+    for policy in ("float32", "bfloat16"):
+        timed = 5 if policy == "bfloat16" else 0
+        one = dp_rank_steps(cfg, policy, timed)
+        two = distributed.launch(dp_rank_steps, ranks, (cfg, policy, timed), device_type="cuda",
+                                 backend=backend, timeout=300, env=env)
+        steps = len(one["metrics"])
+        loss_err = max(abs(r["metrics"][i]["loss"] - one["metrics"][i]["loss"])
+                       / abs(one["metrics"][i]["loss"]) for r in two for i in range(steps))
+        perr = max(float(np.max(np.abs(r["params"][n] - one["params"][n])
+                                - 2e-4 * np.abs(one["params"][n]))) for r in two
+                   for n in one["params"])
+        maxd = max(float(np.max(np.abs(r["params"][n] - one["params"][n]))) for r in two
+                   for n in one["params"])
+        for rank, r in enumerate(two):
+            counts[f"dp-train rank {rank} [{backend}, {policy}]"] = r["launches"]
+            if any(r["launches"][k] != steps for k in DP_TRAIN):
+                fail(f"dp [{backend}, {policy}]: rank {rank} launched K5 {r['launches']} in "
+                     f"{steps} steps")
+        line = (f"dp xe [{backend}, {policy}, {ranks} ranks on {[r['device'] for r in two]}, "
+                f"{steps} steps of 64 x 5, dropout {cfg.model.dropout}] vs 1 rank: max "
+                f"relative loss difference {loss_err:.3e}, max |param difference| {maxd:.3e}; "
+                f"K5 per rank {[{k: r['launches'][k] for k in DP_TRAIN} for r in two]}")
+        if policy == "float32":
+            if loss_err > 1e-5 or perr > 1e-5:
+                fail(f"{line}: outside loss rtol 1e-5 / params rtol 2e-4, atol 1e-5")
+        else:
+            bs = cfg.data.batch_size
+            out.update({
+                "one_step_ms": one["step_ms"], "step_ms": [r["step_ms"] for r in two],
+                "allreduce_ms": [r["allreduce_ms"] for r in two], "grad_bytes": two[0]["grad_bytes"],
+                "one_videos_s": bs / one["step_ms"] * 1e3,
+                "rank_videos_s": [bs / ranks / r["step_ms"] * 1e3 for r in two],
+            })
+            out["scaling"] = sum(out["rank_videos_s"]) / out["one_videos_s"]
+            line += (f"; step ms 1 rank {one['step_ms']:.2f}, 2 ranks {out['step_ms']}, "
+                     f"all-reduce ms {out['allreduce_ms']} of {out['grad_bytes']} gradient bytes; "
+                     f"videos/s 1 rank {out['one_videos_s']:.1f}, per rank "
+                     f"{[round(v, 1) for v in out['rank_videos_s']]} (scaling "
+                     f"{out['scaling']:.3f}x)")
+        out[f"loss_err_{policy}"], out[f"param_err_{policy}"] = loss_err, maxd
+        print(f"{line}; {CARD}")
+    one = dp_rank_steps(cfg, "float32", scst=True)["metrics"][0]
+    two = [r["metrics"][0] for r in distributed.launch(
+        dp_rank_steps, ranks, (cfg, "float32", 0, True), device_type="cuda", backend=backend,
+        timeout=300, env=env)]
+    err = max(abs(r["reward_greedy"] - one["reward_greedy"]) / max(abs(one["reward_greedy"]), 1e-12)
+              for r in two)
+    print(f"dp scst [{backend}, float32, {ranks} ranks]: reward_greedy {[r['reward_greedy'] for r in two]}"
+          f" vs 1 rank {one['reward_greedy']} (relative {err:.3e}); loss "
+          f"{[r['loss'] for r in two]}; {CARD}")
+    if err > 1e-4 or not all(math.isfinite(r["loss"]) for r in two):
+        fail(f"dp scst [{backend}]: reward_greedy relative difference {err:.3e} > 1e-4")
+    out["scst_reward_err"] = err
+    return out
+
+
+def dp_mesh(dev):
+    import torch
+
+    from controllable_xgating_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(2)
+    return make_mesh(devices=[dev, dev])
+
+
+def dp_eval(params, store, labels, info, dev, counts: dict) -> dict:
+    """(d) `evaluate_split` beam 5 over a mesh of two entries on the 256
+    videos (bf16, launches counted): each block's tokens equal the
+    offline call at the block's batch (bf16, f32); under f32 the sharded
+    tokens agree with the unsharded 256-video call on >= AGREE_MIN of the
+    videos (batch size changes sums on the card); captions/s in turns."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.infer.evaluator import evaluate_split, sharded_call
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.parallel.mesh import replicate, shard_rows
+
+    mesh = dp_mesh(dev)
+    reps = replicate(params, mesh)
+    idx = np.arange(B)
+    host = (*store.get_batch(idx), store.frame_mask(idx))
+    out = {"mesh": [str(d) for d in mesh.devices]}
+    with precision("bfloat16"):
+        kernels.reset_launch_counts()
+        metrics, caps = evaluate_split(params, store, labels, info, split="test", batch_size=B,
+                                       max_len=MAX_LEN, max_pos_len=MAX_LEN,
+                                       caption_fn=caption_fn(True, None), mesh=mesh)
+        torch.cuda.synchronize()
+        got = counts["dp-eval beam-5"] = kernels.launch_counts()
+    print(f"dp eval beam-5 over {out['mesh']} launches {got}")
+    if not all(got[n] for n in DP_DECODE) or got["xgate"] != mesh.size:
+        fail(f"dp (d): a kernel of the mesh's beam-5 path did not launch as it should: {got}")
+    if len(caps) != B or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"dp (d): {len(caps)} captions, metrics {metrics}")
+    for policy in ("bfloat16", "float32"):
+        with precision(policy):
+            fn = caption_fn(True, None)
+            tokens = sharded_call(fn, reps, mesh, *host)[0]
+            for d, sl in zip(mesh.devices, shard_rows(B, mesh)):
+                want = fn(reps[d], *(torch.as_tensor(x[sl], device=d) for x in host))[0].cpu()
+                if not torch.equal(tokens[sl], want):
+                    fail(f"dp (d) [{policy}]: the block of rows {sl} on {d} differs from the "
+                         "offline call at its batch")
+            whole = fn(params, *(torch.as_tensor(x, device=dev) for x in host))[0].cpu()
+            agree = (tokens == whole).all(1).float().mean().item()
+        out[f"agree_{policy}"] = agree
+        print(f"dp eval beam-5 [{policy}] over {out['mesh']}: every block equals the offline call "
+              f"at its batch of {B // mesh.size}; agreement with the {B}-video call {agree:.4f}; "
+              f"{CARD}")
+        if policy == "float32" and agree < AGREE_MIN:
+            fail(f"dp (d): f32 agreement {agree:.4f} < {AGREE_MIN}")
+    rates = {"mesh": [], "one": []}
+    with precision("bfloat16"):
+        fn = caption_fn(True, None)
+        inputs = [torch.as_tensor(x, device=dev) for x in host]
+        for on in ("mesh", "one", "one", "mesh"):
+            t = time.perf_counter()
+            if on == "mesh":
+                sharded_call(fn, reps, mesh, *host)
+            else:
+                fn(params, *inputs)[0].cpu()
+            torch.cuda.synchronize()
+            rates[on].append(B / (time.perf_counter() - t))
+    out["captions_s"] = rates
+    print(f"dp eval beam-5 captions/s [bfloat16, {B} videos, host arrays in, tokens out], mesh "
+          f"{out['mesh']} then one device in turns: mesh {rates['mesh']} one {rates['one']}; "
+          f"{CARD}")
+    return out
+
+
+def dp_serve(params, cfg, info, dev, counts: dict) -> dict:
+    """(e) An engine over the mesh at buckets DP_BUCKETS, beam 5, per
+    policy: every served block equals the offline call on the same block
+    (`check_served_batches`), with its launches."""
+    from controllable_xgating_torch.data.vocab import Vocab
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.serve.engine import ServingEngine
+
+    mesh = dp_mesh(dev)
+    tags = [f"t{i}" for i in range(POS_VOCAB - 4)]
+    reqs = serve_requests(cfg, 16, seed=21, tags=tags)
+    controlled = [dict(r, pos_tags=tags[:6]) for r in serve_requests(cfg, 4, seed=22, tags=tags)]
+    out = {}
+    for policy in ("float32", "bfloat16"):
+        graphs.clear()
+        with precision(policy):
+            eng = ServingEngine(params, cfg, info.vocab, Vocab(tags), mode="beam",
+                                buckets=DP_BUCKETS, mesh=mesh)
+        try:
+            eng.warmup()
+            res = check_served_batches(eng, eng._replicas, cfg, policy, reqs, controlled)
+        finally:
+            eng.close()
+        counts[f"dp-serve [{policy}]"] = res["launches"]
+        out[policy] = res
+        print(f"dp serve [{policy}] over {[str(d) for d in mesh.devices]}, buckets {DP_BUCKETS}: "
+              f"{res['batches']} blocks served, each equal to the offline call on it; {CARD}")
+    return out
+
+
+def dp_phase(params, cfg, store, labels, info, dev) -> dict:
+    """The data-parallel path (ROADMAP A7) at MSR-VTT width: (a) the train
+    CLI over NCCL at world size 1, (b) two ranks over gloo (on the one
+    card of a one-card machine), (c) where there are two or more cards, 2
+    (or, with four, 4) ranks over NCCL and the train CLI's own ranks
+    against one device, (d) the decode mesh's
+    eval, (e) the mesh's serving engine. Returns the printed numbers and
+    the launches of each run."""
+    import shutil
+
+    import torch
+
+    from controllable_xgating_torch.ops.precision import set_compute_dtype
+
+    t0 = time.perf_counter()
+    counts: dict = {}
+    root = os.path.join(HERE, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "corpus")
+    write_cli_corpus(data, cfg, seed=2)
+    out = {"a": dp_cli_world_one(data)}
+    out["b"] = dp_pair(cfg, "gloo", counts, env={"CUDA_VISIBLE_DEVICES": "0"})
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = 4 if cards >= 4 else 2
+        out["c"] = {"steps": dp_pair(cfg, "nccl", counts, ranks=n), "cli": dp_cli_cards(data, n)}
+    else:
+        out["c"] = "skipped: one card"
+        print(f"dp (c) two or more cards over NCCL: skipped, this machine has {cards} card "
+              f"(not measured); {CARD}")
+    shutil.rmtree(root, ignore_errors=True)
+    out["d"] = dp_eval(params, store, labels, info, dev, counts)
+    out["e"] = dp_serve(params, cfg, info, dev, counts)
+    set_compute_dtype("bfloat16")
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"dp phase: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2930,6 +3300,10 @@ def main() -> None:
     # the early exit and the controllability study on trained weights
     study = study_phase(dev)
 
+    # data parallelism: the train CLI in a process group, two ranks, the
+    # decode mesh's eval and serving
+    dp = dp_phase(params, cfg, store, labels, info, dev)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -2958,7 +3332,7 @@ def main() -> None:
     ]
     bounds = {**caption_bounds(params), **xent_bounds(n_rows, VOCAB), **quant_bounds(params)}
     print("device us per launch (torch.profiler, the path's shapes; bound us): " + json.dumps(
-        {n: [round(DEVICE_US[n], 2), round(bounds[n][0] * 1e3, 2)] for n, *_ in kernel_rows}))
+        {n: [fmt_us(DEVICE_US[n]), round(bounds[n][0] * 1e3, 2)] for n, *_ in kernel_rows}))
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": r,
          "launches": counts[path][n], "max_abs_err": res[0], "ms": res[1], "plain_ms": res[2],
@@ -2971,6 +3345,7 @@ def main() -> None:
     print("graphs phase (graphed vs eager, bf16): " + json.dumps(graph_rows))
     print("serve phase: " + json.dumps(serve_rows, default=str))
     print("study phase: " + json.dumps(study))
+    print("dp phase: " + json.dumps(dp, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

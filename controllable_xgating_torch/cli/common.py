@@ -21,6 +21,7 @@ import torch
 from controllable_xgating_torch.data.corpus import CorpusInfo, load_labels
 from controllable_xgating_torch.data.features import FEATURES_DIR, FeatureStore
 from controllable_xgating_torch.models.captioner import CaptionerParams, init_captioner
+from controllable_xgating_torch.parallel.distributed import initialize_from_env, local_device
 from controllable_xgating_torch.train.state import (
     CheckpointManager,
     TrainState,
@@ -58,9 +59,11 @@ def apply_runtime_flags(args, cfg: Config) -> tuple[torch.device, str]:
     """(device, compute dtype) for this run: `--compute_dtype` when given,
     else `model.dtype` (bf16) on the card and float32 on the CPU, as the
     JAX CLIs pick by backend. The caller runs under `precision(dtype)`.
-    Refuses what the port does not run yet. `parallel.num_devices` is
-    left to each CLI: caption never reads it, eval decodes on its one
-    device, train refuses it (`refuse_data_parallel`)."""
+    Refuses what the port does not run yet. Where the environment names a
+    process group (`parallel/distributed.py::initialize_from_env`: the
+    CXG_* variables or torchrun's), the process joins it (NCCL on the
+    card, gloo on the CPU) and its device is its own card,
+    `cuda:LOCAL_RANK`. `parallel.num_devices` is left to each CLI."""
     if args.compile_cache is not None:
         die("--compile_cache has no counterpart in the port: it keeps no XLA compile cache "
             "(its kernels are built once per checkout, under build/kernels)")
@@ -69,16 +72,10 @@ def apply_runtime_flags(args, cfg: Config) -> tuple[torch.device, str]:
             "use python -m controllable_xgating_torch.utils.profiling")
     if args.debug_nans:
         die("--debug_nans is not ported yet (ROADMAP A10, measurement)")
-    return runtime_device(args.device, args.compute_dtype, cfg)
-
-
-def refuse_data_parallel(cfg: Config) -> None:
-    """Exit 1 for `parallel.num_devices > 1`: the trainer runs on one
-    device until data parallelism is ported (ROADMAP A7), as the JAX
-    package's `make_mesh` raises where the devices are short."""
-    if cfg.parallel.num_devices > 1:
-        die(f"parallel.num_devices={cfg.parallel.num_devices}: data parallelism is not "
-            "ported yet (ROADMAP A7); the port trains on one device")
+    device, dtype = runtime_device(args.device, args.compute_dtype, cfg)
+    if initialize_from_env(device.type):
+        device = local_device(device.type)
+    return device, dtype
 
 
 def runtime_device(name: str, compute_dtype, cfg: Config) -> tuple[torch.device, str]:

@@ -2,9 +2,12 @@
 score with the metric suite, print the metrics JSON and write it with the
 captions to `<checkpoint_dir>/eval_<split>.json` (or `--out`).
 
-Counterpart of `controllable_xgating_tpu/cli/eval.py`, on one device:
-`parallel.num_devices > 1` decodes there too, as the JAX CLI does where
-the devices are short.
+Counterpart of `controllable_xgating_tpu/cli/eval.py`. With
+`parallel.num_devices` N > 1 (0: every visible card) it decodes each
+batch over a mesh of N cards (`parallel/mesh.py`) where there are that
+many, the batch divides by N and the run is one process; otherwise on one
+device, as the JAX CLI does where the devices are short (a training
+config's device count never stops an eval).
 
   python -m controllable_xgating_torch.cli.eval --data_dir D \\
       --checkpoint_dir checkpoints/joint --split test --beam_size 5
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import json
 import os
+
+import torch
 
 from controllable_xgating_torch.cli.common import (
     add_ckpt_args,
@@ -71,12 +76,27 @@ def main(argv=None) -> None:
         _eval(args, cfg, beam, device)
 
 
+def eval_mesh(cfg, device):
+    """The decode mesh: `parallel.num_devices` N (0: the visible cards)
+    cards where 1 < N <= their count, the batch divides by N and no
+    process group runs (eval is a process-local concern, as in JAX); else
+    None (one device). The CPU counts as one device."""
+    from controllable_xgating_torch.parallel import distributed
+    from controllable_xgating_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = cfg.parallel.num_devices or count
+    if 1 < n <= count and cfg.data.batch_size % n == 0 and not distributed.is_multiprocess():
+        log.info("eval data-parallel over %d devices", n)
+        return make_mesh(n, axis=cfg.parallel.mesh_axis)
+    if n > 1:
+        log.info("parallel.num_devices=%d: decoding on one device", n)
+    return None
+
+
 def _eval(args, cfg, beam: int, device) -> None:
     info, labels, store, cfg = load_corpus(args.data_dir, cfg)
-    if cfg.parallel.num_devices > 1:
-        # as the JAX CLI on a smaller machine: a training config's device
-        # count never stops an eval (decoding is row-independent)
-        log.info("parallel.num_devices=%d: decoding on one device", cfg.parallel.num_devices)
+    mesh = eval_mesh(cfg, device)
     diversity = dict(diversity_groups=cfg.eval.diversity_groups,
                      diversity_penalty=cfg.eval.diversity_penalty)
     if args.ensemble:
@@ -102,14 +122,14 @@ def _eval(args, cfg, beam: int, device) -> None:
         metrics, oracle, lists = evaluate_split_nbest(
             params, store, labels, info, caption_fn, args.nbest, split=args.split,
             batch_size=cfg.data.batch_size, metrics=cfg.eval.metrics,
-            oracle_metric=args.oracle_metric,
+            oracle_metric=args.oracle_metric, mesh=mesh,
         )
         captions = {v: [{"caption": c, "score": s} for c, s in l] for v, l in lists.items()}
     else:
         metrics, captions = evaluate_split(
             params, store, labels, info, split=args.split, batch_size=cfg.data.batch_size,
             max_len=cfg.eval.max_decode_len, max_pos_len=cfg.model.max_pos_len,
-            caption_fn=caption_fn, metrics=cfg.eval.metrics,
+            caption_fn=caption_fn, metrics=cfg.eval.metrics, mesh=mesh,
         )
     result = {"split": args.split, "beam_size": beam, "metrics": metrics}
     if args.nbest:

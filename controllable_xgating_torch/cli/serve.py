@@ -4,8 +4,10 @@ Counterpart of `controllable_xgating_tpu/cli/serve.py`: an HTTP JSON API
 in front of `serve.engine.ServingEngine`, which coalesces concurrent
 requests into bucketed device batches (see that module's docstring). It
 serves on the card unless `--device cpu` is given; without a CUDA device
-`--device cuda` exits 1. `--devices N > 1` (data-parallel serving) exits
-1 until data parallelism is ported (ROADMAP A7).
+`--device cuda` exits 1. `--devices N > 1` serves data-parallel over the
+first N cards (`parallel/mesh.py`; more than there are exits 1), or over N
+entries of the CPU with `--device cpu`; buckets that N does not divide are
+dropped, as in the JAX CLI.
 
 The compute policy the CLI picks (bf16 on the card, f32 on the CPU, or
 `--compute_dtype`) is the engine's for its whole life: the engine fixes
@@ -49,10 +51,28 @@ def build_engine(args, cfg, info, device):
     else:
         params = restore_params(args.checkpoint_dir, cfg, device, name=args.ckpt_name)
     buckets = tuple(int(b) for b in args.buckets.split(","))
+    mesh = None
+    n_dev = args.devices or 1
+    if n_dev > 1:
+        from controllable_xgating_torch.parallel.mesh import make_mesh
+
+        try:
+            mesh = make_mesh(n_dev, devices=[device] * n_dev if device.type == "cpu" else None)
+        except ValueError as e:
+            die(f"--devices {n_dev}: {e}")
+        kept = tuple(b for b in buckets if b % n_dev == 0)
+        if kept != buckets:
+            if not kept:
+                die(f"no bucket in {list(buckets)} is divisible by --devices {n_dev}; pass e.g. "
+                    f"--buckets {n_dev},{4 * n_dev},{16 * n_dev}")
+            print(json.dumps({"event": "buckets_filtered",
+                              "dropped": [b for b in buckets if b % n_dev], "kept": list(kept)}))
+            buckets = kept
+        print(json.dumps({"event": "mesh", "devices": n_dev}))
     return ServingEngine(
         params, cfg, info.vocab, info.pos_vocab,
         mode=args.mode, buckets=buckets, max_wait_ms=args.max_wait_ms,
-        max_queue=args.max_queue, n_members=n_members,
+        mesh=mesh, max_queue=args.max_queue, n_members=n_members,
         shed_margin=args.shed_margin,
         adaptive_margin=args.adaptive_margin,
         nbest=args.nbest,
@@ -75,7 +95,7 @@ def start(argv=None):
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running every bucket once at startup")
     p.add_argument("--devices", type=int, default=0,
-                   help=">1 = data-parallel serving (not ported yet: ROADMAP A7)")
+                   help=">1 = data-parallel serving over that many devices")
     p.add_argument("--shed_margin", type=float, default=1.3,
                    help="scale the predicted pipeline latency used for "
                         "deadline shedding / bucket choice: > 1 sheds "
@@ -93,9 +113,6 @@ def start(argv=None):
                         "best scored hypotheses (N <= eval.beam_size)")
     add_ensemble_arg(p)
     args, cfg = parse_with_overrides(p, argv)
-    if args.devices > 1:
-        die(f"--devices {args.devices}: data-parallel serving is not ported yet "
-            "(ROADMAP A7); the port serves on one device")
     cfg = adopt_run_config(args, cfg)
     device, dtype = apply_runtime_flags(args, cfg)
     if args.nbest:

@@ -499,7 +499,7 @@ cudaError_t launch_attn_lstm_bf16(const void* x, const void* w_pre, float* pre, 
   const int cell_smem = (int)hop::streamed_smem_bytes(kCellStages);
   const bool staged = attn_rows_staged(t, a, g, keys, encp);
   const int attn_smem = (int)attn_rows_smem_bytes(t, a, g, staged);
-  static int pre_set = 0, cell_set = 0, attn_set = 0;
+  static hop::SmemLimits pre_set, cell_set, attn_set;
   err = hop::allow_smem(pre_gemm_kernel, smem, pre_set);
   if (err == cudaSuccess) err = hop::allow_smem(cell_gemm_kernel, cell_smem, cell_set);
   if (err == cudaSuccess) err = hop::allow_smem(attn_rows_kernel, attn_smem, attn_set);

@@ -99,14 +99,26 @@ inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int rows, int c
 // Nothing more, so that two 113 KB blocks still share an SM's 228 KB.
 inline size_t smem_request(size_t bytes) { return bytes + kAlign; }
 
-// Raise a kernel's dynamic shared memory limit to `bytes` where it is
-// below; `current` remembers what this process has set.
+// The dynamic shared memory limits this process has raised for one
+// kernel, per device: the attribute is the current device's own, so a
+// second card starts from the default.
+struct SmemLimits {
+  static constexpr int kDevices = 64;
+  int bytes[kDevices] = {};
+};
+
+// Raise a kernel's dynamic shared memory limit on the current device to
+// `bytes` where it is below; `current` remembers what this process has
+// set on each device.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes, int& current) {
-  if (bytes <= current) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) current = bytes;
+inline cudaError_t allow_smem(Kernel kernel, int bytes, SmemLimits& current) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= SmemLimits::kDevices) return cudaErrorInvalidDevice;
+  if (bytes <= current.bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) current.bytes[dev] = bytes;
   return err;
 }
 

@@ -175,7 +175,8 @@ extern "C" int cxg_int8_vocab_fwd(const void* x, const void* wq_t, const void* s
                             hop::kTileK, cxg::kI8Vocab, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return (int)err;
   const int smem = (int)cxg::int8_vocab_smem_bytes();
-  static int smem_set = 0, sms = 0;
+  static hop::SmemLimits smem_set;
+  static int sms = 0;
   err = hop::allow_smem(cxg::int8_vocab_kernel, smem, smem_set);
   if (err == cudaSuccess && sms == 0) {
     int dev = 0;

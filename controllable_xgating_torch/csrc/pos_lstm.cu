@@ -197,7 +197,7 @@ extern "C" int cxg_pos_lstm_bf16_fwd(const void* maps, int h_sel, const void* sg
   cxg::PosLstmMaps m;
   memcpy(&m, maps, sizeof(m));
   const int smem = (int)cxg::pos_lstm_smem_bytes();
-  static int smem_set = 0;
+  static hop::SmemLimits smem_set;
   cudaError_t err = hop::allow_smem(cxg::pos_lstm_wgmma_kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int n_cell = 4 * cxg::round_up4(hd);

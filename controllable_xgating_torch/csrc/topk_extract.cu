@@ -253,7 +253,7 @@ cudaError_t launch_topk_extract_bf16(const void* h, const void* w_t, const float
   const dim3 grid(nchunks, (rows + kTxRowsPerBlock - 1) / kTxRowsPerBlock);
   auto launch = [&](auto kc) -> cudaError_t {  // one instantiation per K
     constexpr int K = decltype(kc)::value;
-    static int smem_set = 0;
+    static hop::SmemLimits smem_set;
     const cudaError_t e = hop::allow_smem(topk_extract_wgmma_kernel<K>, smem, smem_set);
     if (e != cudaSuccess) return e;
     topk_extract_wgmma_kernel<K><<<grid, kTxWgs * hop::kThreads, smem, st>>>(

@@ -431,7 +431,7 @@ cudaError_t launch_topk_tail_bf16(const void* h, const void* w_t, const float* b
   const dim3 grid(nchunks, (rows + hop::kTileM - 1) / hop::kTileM);
   auto launch = [&](auto kc) -> cudaError_t {  // one instantiation per K
     constexpr int K = decltype(kc)::value;
-    static int smem_set = 0;
+    static hop::SmemLimits smem_set;
     const cudaError_t e = hop::allow_smem(topk_chunk_wgmma_kernel<K>, smem, smem_set);
     if (e != cudaSuccess) return e;
     topk_chunk_wgmma_kernel<K><<<grid, kTkThreads, smem, st>>>(

@@ -247,7 +247,7 @@ template <int STEP>
 cudaError_t launch_chain_step(const CUtensorMap& a0, const CUtensorMap& b0, const CUtensorMap& a1,
                               const CUtensorMap& b1, const XgArgs& args, int nz,
                               cudaStream_t st) {
-  static int smem_set = 0;
+  static hop::SmemLimits smem_set;
   const int smem = (int)hop::streamed_smem_bytes(kXgStages, kXgWgs);
   const cudaError_t err = hop::allow_smem(xgate_chain_kernel<STEP>, smem, smem_set);
   if (err != cudaSuccess) return err;

@@ -1,10 +1,12 @@
 """Split evaluation: decode a split batch by batch, score on the host.
 
 Counterpart of `make_greedy_caption_fn`, `evaluate_split` and
-`evaluate_split_nbest` in `controllable_xgating_tpu/infer/evaluator.py`
-(without the device mesh).
+`evaluate_split_nbest` in `controllable_xgating_tpu/infer/evaluator.py`.
 Token ids leave the device once per batch; strings are joined through the
 vocab and scored by the port's copy of the metric harness (`metrics/`).
+With a `parallel/mesh.py::Mesh` each batch is split into one block of
+rows per device, each decoded there on that device's copy of the
+parameters (`sharded_call`), and the results are joined in row order.
 """
 
 from __future__ import annotations
@@ -56,6 +58,38 @@ def params_device(params) -> torch.device:
     return member.decoder.w_out.device
 
 
+def sharded_call(caption_fn, replicas: dict, mesh, app, motion, frame_mask=None) -> tuple:
+    """`caption_fn(params, app, motion, frame_mask)` over the mesh: host
+    arrays [B, ...] split into `mesh.size` contiguous blocks of rows
+    (`parallel/mesh.py::shard_rows`), block i decoded on `mesh.devices[i]`
+    with `replicas[device]`; each output's blocks joined in row order on
+    the CPU. Every block is launched before any is read back, so distinct
+    cards decode at once; blocks on one device run in turn (their decode
+    graphs share keys: each call's outputs are clones, read after the
+    next block's replay)."""
+    from controllable_xgating_torch.parallel.mesh import shard_batch
+
+    blocks = shard_batch({"app": app, "motion": motion, "mask": frame_mask}, mesh)
+    outs = [caption_fn(replicas[dev], b["app"], b["motion"], b["mask"])
+            for dev, b in zip(mesh.devices, blocks)]
+    return tuple(torch.cat([o[i].cpu() for o in outs]) for i in range(len(outs[0])))
+
+
+def _batch_caller(params, caption_fn, batch_size: int, mesh):
+    """(app, motion, frame_mask) host arrays -> caption_fn's outputs: on
+    the parameters' device, or over `mesh` (the batch must divide by it)."""
+    if mesh is None:
+        device = params_device(params)
+        put = lambda x: None if x is None else torch.as_tensor(x, device=device)
+        return lambda app, motion, mask: caption_fn(params, put(app), put(motion), put(mask))
+    if batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} not divisible by the {mesh.size}-device mesh")
+    from controllable_xgating_torch.parallel.mesh import replicate
+
+    replicas = replicate(params, mesh)
+    return lambda app, motion, mask: sharded_call(caption_fn, replicas, mesh, app, motion, mask)
+
+
 def evaluate_split(
     params,
     store,
@@ -67,6 +101,7 @@ def evaluate_split(
     max_pos_len: int = 28,
     caption_fn=None,
     metrics=None,
+    mesh=None,
 ) -> tuple[dict, dict]:
     """Returns (metrics dict, {video_id: caption string}).
 
@@ -75,19 +110,18 @@ def evaluate_split(
     the JAX package's CorpusInfo does. `params` is what `caption_fn`
     takes: a `CaptionerParams`, or an ensemble's tuple of members with
     `infer/ensemble.py::make_ensemble_caption_fn`. `caption_fn` defaults
-    to greedy."""
+    to greedy. `mesh` (`parallel/mesh.py::Mesh`) splits every batch over
+    its devices (`sharded_call`); `batch_size` must divide by its size
+    (`eval_batches` pads every batch to full size)."""
     if caption_fn is None:
         caption_fn = make_greedy_caption_fn(max_pos_len, max_len)
     indices = np.asarray(info.splits[split], np.int64)
     if len(indices) == 0:
         raise ValueError(f"split {split!r} is empty")
-    device = params_device(params)
-    put = lambda x: None if x is None else torch.as_tensor(x, device=device)
+    call = _batch_caller(params, caption_fn, batch_size, mesh)
     res: dict[str, list[str]] = {}
     for batch in eval_batches(store, indices, batch_size):
-        tokens, _ = caption_fn(
-            params, put(batch["app"]), put(batch["motion"]), put(batch.get("frame_mask"))
-        )
+        tokens, _ = call(batch["app"], batch["motion"], batch.get("frame_mask"))
         tokens = tokens.cpu().numpy()
         for row in range(batch["num_valid"]):
             vid = info.video_ids[int(batch["video_indices"][row])]
@@ -109,6 +143,7 @@ def evaluate_split_nbest(
     batch_size: int = 64,
     metrics=None,
     oracle_metric: str = "CIDErD",
+    mesh=None,
 ) -> tuple[dict, dict, dict]:
     """N-best evaluation with oracle headroom (the reranking diagnostic).
 
@@ -118,20 +153,18 @@ def evaluate_split_nbest(
     (metrics of rank 0, oracle metrics, {video_id: [(caption, score), ...]}).
     The oracle picks, per video, the hypothesis among its top `nbest` that
     maximizes the video's own `oracle_metric`, then scores that selection
-    as a corpus: what a perfect reranker of the list would reach."""
+    as a corpus: what a perfect reranker of the list would reach. `mesh`
+    as in `evaluate_split`."""
     oracle_metric = normalize_metric_name(oracle_metric)
     if nbest < 1:
         raise ValueError("nbest must be >= 1")
     indices = np.asarray(info.splits[split], np.int64)
     if len(indices) == 0:
         raise ValueError(f"split {split!r} is empty")
-    device = params_device(params)
-    put = lambda x: None if x is None else torch.as_tensor(x, device=device)
+    call = _batch_caller(params, caption_fn, batch_size, mesh)
     lists: dict[str, list] = {}
     for batch in eval_batches(store, indices, batch_size):
-        tokens, scores, _ = caption_fn(
-            params, put(batch["app"]), put(batch["motion"]), put(batch.get("frame_mask"))
-        )
+        tokens, scores, _ = call(batch["app"], batch["motion"], batch.get("frame_mask"))
         tokens = tokens.cpu().numpy()  # [B, K, L] best-first
         scores = scores.cpu().numpy()  # [B, K]
         if nbest > tokens.shape[1]:

@@ -62,7 +62,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Optional
 
 import torch
@@ -342,9 +342,12 @@ def _steps(loop: StepLoop, carry: dict, span) -> dict:
 
 def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
     """First sight of a key: static inputs and carry, a warm-up of chunk 0
-    on a side stream (it builds the kernel library, makes cuBLAS's handle,
-    sets each kernel's attributes), then every chunk captured into one
-    pool; the launch counters end as they began."""
+    on a side stream of the loop's device (it builds the kernel library,
+    makes cuBLAS's handle and workspace, sets each kernel's attributes),
+    then every chunk captured on that stream into one pool (torch's
+    default capture stream belongs to the device of the first capture in
+    the process, so a second card needs its own); the launch counters end
+    as they began."""
     dev = loop.device
     entry = Entry(loop, spans)
     ledger = LaunchLedger()
@@ -366,7 +369,8 @@ def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
         for i, span in enumerate(spans):
             graph = torch.cuda.CUDAGraph()
             before = ledger.read()
-            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
                 work = _steps(loop, entry.carry, span)
                 entry.flags[i].copy_(loop.done(work))
                 copy_tree(entry.carry, work)  # the carry this chunk ends with
@@ -433,17 +437,22 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
             if entry is not None:
                 _CACHE.move_to_end(key)
         captured = entry is None
-        if captured:
-            entry = _capture(loop, inp, spans)
-        else:
-            entry.loop.load(inp)
-        with _CACHE_LOCK:
-            if held is not None:
-                held.add(key)
+        # a key's graphs, events and streams are its card's: capture and
+        # replay with that card current, whichever the caller left current
+        on_card = (torch.cuda.device(loop.device) if loop.device.type == "cuda"
+                   else nullcontext())
+        with on_card:
             if captured:
-                _CACHE[key] = entry
-                _evict()
-        copy_tree(entry.carry, entry.loop.init())
-        n = _replay(entry, early_stop)
+                entry = _capture(loop, inp, spans)
+            else:
+                entry.loop.load(inp)
+            with _CACHE_LOCK:
+                if held is not None:
+                    held.add(key)
+                if captured:
+                    _CACHE[key] = entry
+                    _evict()
+            copy_tree(entry.carry, entry.loop.init())
+            n = _replay(entry, early_stop)
         LAST.update(kind=loop.kind, captured=captured, chunks=n, of=len(spans))
         return clone_tree(entry.loop.finish(entry.carry))

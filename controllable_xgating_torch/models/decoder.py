@@ -187,6 +187,7 @@ def decoder_forward(
     gen: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
     remat: bool = False,
+    shard: tuple = (0, 1),
 ) -> torch.Tensor:
     """Teacher-forced logits [B, L-1, V]; logits[:, t] predicts captions[:, t+1].
 
@@ -197,7 +198,8 @@ def decoder_forward(
     projection is hoisted out of the loop into one product over all
     steps' hidden states, which are stacked batch-major so that the logits
     come out contiguous. `remat=True` checkpoints each step: the backward
-    recomputes its attention and gate instead of keeping them."""
+    recomputes its attention and gate instead of keeping them. The batch
+    is block `shard` of the global batch's rows (`dropout.keep_rows`)."""
     b, length = captions.shape
     h, c = init_decoder_state(params, summary)
     inputs = captions[:, :-1].long()
@@ -205,10 +207,10 @@ def decoder_forward(
     if gen is not None and dropout_rate > 0.0:
         scale = 1.0 / (1.0 - dropout_rate)
         dev, dt = params.embed.device, params.embed.dtype
-        emb_drop = dropout.keep_mask(
-            gen, (length - 1, b, params.embed.shape[1]), dropout_rate, dev).to(dt) * scale
-        out_drop = dropout.keep_mask(
-            gen, (length - 1, b, params.hidden_dim), dropout_rate, dev).to(dt) * scale
+        emb_drop = dropout.keep_rows(
+            gen, (length - 1, b, params.embed.shape[1]), dropout_rate, dev, 1, shard).to(dt) * scale
+        out_drop = dropout.keep_rows(
+            gen, (length - 1, b, params.hidden_dim), dropout_rate, dev, 1, shard).to(dt) * scale
     hs = []
     for t in range(length - 1):
         args = (params, ctx, inputs[:, t], h, c,

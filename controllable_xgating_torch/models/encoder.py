@@ -52,6 +52,7 @@ def encode(
     fused_kernels: Optional[bool] = None,
     gen: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
+    shard: tuple = (0, 1),
 ):
     """Returns (enc_out [B, T, He], summary [B, He]).
 
@@ -59,7 +60,8 @@ def encode(
     kernel wrapper (inference only: the kernel has no backward). The
     concat ablation has no kernel and always takes the plain path, as in
     the JAX package. With a generator and `dropout_rate > 0` the fused
-    features are dropped out (keep-mask, scaled by 1 / (1 - rate))."""
+    features are dropped out (keep-mask, scaled by 1 / (1 - rate)); the
+    batch is block `shard` of the global batch's rows (`dropout.keep_rows`)."""
     if fused_kernels and params.xgate.mode == "xgate":
         from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
 
@@ -67,7 +69,7 @@ def encode(
     else:
         fused = xgate_fuse(params.xgate, app, motion)  # [B, T, H]
     if gen is not None and dropout_rate > 0.0:
-        keep = dropout.keep_mask(gen, fused.shape, dropout_rate, fused.device)
+        keep = dropout.keep_rows(gen, fused.shape, dropout_rate, fused.device, 0, shard)
         fused = torch.where(keep, fused / (1.0 - dropout_rate), 0.0).to(fused.dtype)
     if params.lstm_bwd is not None:
         enc_out, _ = bilstm_scan(params.lstm_fwd, params.lstm_bwd, fused, frame_mask)

@@ -210,7 +210,7 @@ def attn_lstm_step_kernel(
         )
         ptrs = check("x", "w_pre", "pre", "keys", "encp", "psi", "mask", "battn", "v", "bg",
                      "guide", "w_cell", "b_cell", "c")
-        rc = lib.cxg_attn_lstm_bf16_fwd(*ptrs, *outs, b, hd, e_dim, t, a, g, build.stream_ptr(dev))
+        rc = build.launch(lib.cxg_attn_lstm_bf16_fwd, dev, *ptrs, *outs, b, hd, e_dim, t, a, g)
     else:
         ops.update(h=cast(h), e=cast(token_emb), guide=torch.empty((b, g), dtype=cdt, device=dev))
         shapes.update(
@@ -220,7 +220,7 @@ def attn_lstm_step_kernel(
         )
         ptrs = check("h", "c", "e", "keys", "encp", "psi", "mask", "wq", "battn", "v", "wg_h",
                      "wg_e", "bg", "wih_e", "wih_g", "whh", "bl", "guide")
-        rc = lib.cxg_attn_lstm_fwd(*ptrs, *outs, b, hd, e_dim, t, a, g, build.stream_ptr(dev))
+        rc = build.launch(lib.cxg_attn_lstm_fwd, dev, *ptrs, *outs, b, hd, e_dim, t, a, g)
     build.raise_on_error(rc, "attn_lstm")
     attn_lstm_step_kernel.launches += 1
     return h_out, c_out, alpha

@@ -162,8 +162,13 @@ def smem_limit(device) -> int:
     return int(getattr(props, "shared_memory_per_block_optin", 232448))
 
 
-def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def launch(fn, device, *args) -> int:
+    """`fn(*args, stream)` with `device` current and its current stream
+    last (the error code): the kernels raise their shared memory limits
+    on, and launch into, the current device, whichever card the caller
+    left current."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def raise_on_error(rc: int, kernel: str) -> None:

@@ -95,7 +95,7 @@ def int8_vocab_proj(
     ]
     if ptrs[1] % 16:
         raise ValueError("int8_vocab kernel: wq_t must be 16-byte aligned")
-    rc = build.library().cxg_int8_vocab_fwd(*ptrs, m, kx, n, vpad, ldq, build.stream_ptr(dev))
+    rc = build.launch(build.library().cxg_int8_vocab_fwd, dev, *ptrs, m, kx, n, vpad, ldq)
     build.raise_on_error(rc, "int8_vocab")
     int8_vocab_proj.launches += 1
     return out

@@ -165,9 +165,9 @@ class PosLstmRollout:
         if self.bf16:
             torch.index_select(self.table, 0, tok, out=self.e)
             nxt = 1 - self.cur
-            rc = lib.cxg_pos_lstm_bf16_fwd(
-                self.maps, self.cur, self.sgb.data_ptr(), cp, h_out.data_ptr(), c_out.data_ptr(),
-                self.hb[nxt].data_ptr(), b, self.e_dim, hd, build.stream_ptr(dev))
+            rc = build.launch(
+                lib.cxg_pos_lstm_bf16_fwd, dev, self.maps, self.cur, self.sgb.data_ptr(), cp,
+                h_out.data_ptr(), c_out.data_ptr(), self.hb[nxt].data_ptr(), b, self.e_dim, hd)
             self.cur = nxt
         else:
             e = p.embed[tok].to(device=dev, dtype=f32).contiguous()
@@ -180,8 +180,8 @@ class PosLstmRollout:
                 build.check(self.w.whh, "whh", (hd, 4 * hd), f32, dev),
                 build.check(self.w.b, "b", (4 * hd,), f32, dev),
             ]
-            rc = lib.cxg_pos_lstm_fwd(*ptrs, h_out.data_ptr(), c_out.data_ptr(), b, self.e_dim,
-                                      hd, build.stream_ptr(dev))
+            rc = build.launch(lib.cxg_pos_lstm_fwd, dev, *ptrs, h_out.data_ptr(),
+                              c_out.data_ptr(), b, self.e_dim, hd)
         build.raise_on_error(rc, "pos_lstm")
         PosLstmRollout.launches += 1
         self.h = h_out

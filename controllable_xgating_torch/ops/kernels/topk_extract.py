@@ -90,8 +90,8 @@ def logits_topk_extract_kernel(
         build.check(idx, "idx", (r, k), torch.int32, dev),
         build.check(lse, "lse", (r,), f32, dev),
     ]
-    rc = lib.cxg_topk_extract_fwd(
-        build.dtype_code(hc), *ptrs, r, hd, v, k, chunk_cols, build.stream_ptr(dev)
+    rc = build.launch(
+        lib.cxg_topk_extract_fwd, dev, build.dtype_code(hc), *ptrs, r, hd, v, k, chunk_cols
     )
     build.raise_on_error(rc, "topk_extract")
     logits_topk_extract_kernel.launches += 1

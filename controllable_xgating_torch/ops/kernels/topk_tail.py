@@ -189,9 +189,9 @@ def logits_topk(
         build.check(idx, "idx", (r, k), torch.int32, dev),
         build.check(lse, "lse", (r,), f32, dev),
     ]
-    rc = lib.cxg_topk_tail_fwd(
-        build.dtype_code(hc), *ptrs, r, hd, v, k, int(bool(block_unk)), CHUNK_COLS,
-        build.stream_ptr(dev),
+    rc = build.launch(
+        lib.cxg_topk_tail_fwd, dev, build.dtype_code(hc), *ptrs, r, hd, v, k,
+        int(bool(block_unk)), CHUNK_COLS,
     )
     build.raise_on_error(rc, "topk_tail")
     logits_topk.launches += 1

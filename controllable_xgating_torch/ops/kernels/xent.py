@@ -57,9 +57,10 @@ def xent_fwd_kernel(x: torch.Tensor, t: torch.Tensor):
     lse, tgt, mean = (torch.empty(n, dtype=f32, device=dev) for _ in range(3))
     if n == 0:
         return lse, tgt, mean
-    rc = build.library().cxg_xent_fwd(
+    rc = build.launch(
+        build.library().cxg_xent_fwd, dev,
         x.data_ptr(), build.check(t, "targets", (n,), torch.int64, dev),
-        lse.data_ptr(), tgt.data_ptr(), mean.data_ptr(), n, v, build.stream_ptr(dev),
+        lse.data_ptr(), tgt.data_ptr(), mean.data_ptr(), n, v,
     )
     build.raise_on_error(rc, "xent_fwd")
     xent_fwd_kernel.launches += 1
@@ -75,10 +76,10 @@ def xent_bwd_kernel(x, t, lse, g_lse, g_tgt, g_mean) -> torch.Tensor:
     if n == 0:
         return dx
     vec = lambda a, name: build.check(a.to(f32).contiguous(), name, (n,), f32, dev)
-    rc = build.library().cxg_xent_bwd(
+    rc = build.launch(
+        build.library().cxg_xent_bwd, dev,
         x.data_ptr(), build.check(t, "targets", (n,), torch.int64, dev), vec(lse, "lse"),
         vec(g_lse, "g_lse"), vec(g_tgt, "g_tgt"), vec(g_mean, "g_mean"), dx.data_ptr(), n, v,
-        build.stream_ptr(dev),
     )
     build.raise_on_error(rc, "xent_bwd")
     xent_bwd_kernel.launches += 1

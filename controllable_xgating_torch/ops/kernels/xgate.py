@@ -120,7 +120,7 @@ def _xgate_chain(ops: XGateOperands, xa: torch.Tensor, xm: torch.Tensor) -> torc
         build.check(p, "p", (rows, 2 * h), bf16, dev),
         build.check(out, "out", (rows, h), bf16, dev),
     ]
-    rc = build.library().cxg_xgate_chain_fwd(*ptrs, rows, da, dm, h, build.stream_ptr(dev))
+    rc = build.launch(build.library().cxg_xgate_chain_fwd, dev, *ptrs, rows, da, dm, h)
     build.raise_on_error(rc, "xgate (bf16 chain)")
     return out
 
@@ -155,7 +155,7 @@ def _xgate_simt(w: XGateWeights, xa: torch.Tensor, xm: torch.Tensor) -> torch.Te
           for b, n in ((ba, "ba"), (bm, "bm"), (bga, "bga"), (bgm, "bgm"), (bf, "bf"))),
         build.check(out, "out", (rows, h), cdt, dev),
     ]
-    rc = lib.cxg_xgate_fwd(build.dtype_code(xa), *ptrs, rows, da, dm, h, build.stream_ptr(dev))
+    rc = build.launch(lib.cxg_xgate_fwd, dev, build.dtype_code(xa), *ptrs, rows, da, dm, h)
     build.raise_on_error(rc, "xgate")
     return out
 

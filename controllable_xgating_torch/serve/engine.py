@@ -28,6 +28,14 @@ unbounded queueing delay:
 Latency accounting (p50/p99 over a sliding window) and batch-occupancy
 counters are exposed via `stats()` and served by `serve/server.py`.
 
+Data-parallel serving (`mesh`, a `parallel/mesh.py::Mesh`): the
+parameters (every ensemble member) are replicated, one copy per distinct
+device, and every bucket batch is split into one contiguous block of rows
+per device, each decoded by the same library calls on its device (its
+graph keys held like the others). Each block's packed output is copied
+into its rows of the batch's one pinned host buffer behind an event on
+its device; the completion thread waits on every event.
+
 Transfer discipline:
 
   * features are fed to the device in the COMPUTE dtype (bf16 under the
@@ -78,6 +86,7 @@ from controllable_xgating_torch.infer.greedy import greedy_decode
 from controllable_xgating_torch.models.captioner import encode_for_inference
 from controllable_xgating_torch.ops.dispatch import fused_enabled
 from controllable_xgating_torch.ops.precision import compute_dtype, thread_precision
+from controllable_xgating_torch.parallel.mesh import device_scope, replicate, shard_rows
 from controllable_xgating_torch.utils.config import Config
 
 
@@ -149,8 +158,8 @@ class ServingEngine:
         batch then decodes with the mean-log-prob ensemble, each member on
         its own K1-K3 operands, as `cxg-eval --ensemble` does.
 
-        `mesh`: data-parallel serving over several devices is not ported
-        yet (ROADMAP A7); anything but None raises.
+        `mesh`: serve data-parallel over its devices (module docstring);
+        every bucket must divide by its size.
 
         `max_queue` > 0 bounds the request queue: submit() raises
         EngineOverloaded once that many requests are waiting (load
@@ -180,10 +189,6 @@ class ServingEngine:
 
         The compute dtype is the policy's at construction
         (`ops/precision.py`), for the engine's life."""
-        if mesh is not None:
-            raise ValueError(
-                "data-parallel serving over a device mesh is not ported yet (ROADMAP A7); "
-                "the port serves on one device")
         if mode not in ("greedy", "beam"):
             raise ValueError(f"mode must be greedy|beam, got {mode!r}")
         if nbest:
@@ -205,10 +210,17 @@ class ServingEngine:
                 f"eval.diversity_groups={dg} must divide "
                 f"eval.beam_size={cfg.eval.beam_size}"
             )
+        if mesh is not None:
+            bad = [b for b in buckets if b % mesh.size]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the {mesh.size}-device mesh")
         ens = int(n_members or 0)
         if ens and (not isinstance(params, (tuple, list)) or len(params) != ens):
             raise ValueError(f"n_members={ens} needs a tuple of {ens} members' parameters")
         self.params = tuple(params) if ens else params
+        self._mesh = mesh
+        # {device: its copy of the parameters}, one per distinct device
+        self._replicas = None if mesh is None else replicate(self.params, mesh)
         self.cfg = cfg
         self.vocab = vocab
         self.pos_vocab = pos_vocab
@@ -362,47 +374,61 @@ class ServingEngine:
     def _on_device(self):
         """The scope of every device call: the device lock, no autograd,
         the engine's compute dtype pinned for this thread, its graph keys
-        joining the held set, the engine's card current."""
-        on_card = (torch.cuda.device(self._device) if self._device.type == "cuda"
-                   else contextlib.nullcontext())
+        joining the held set."""
         with self._device_lock, torch.inference_mode(), thread_precision(self._dtype), \
-                graphs.adding_to(self._keys), on_card:
+                graphs.adding_to(self._keys):
             yield
 
-    def _put(self, x: np.ndarray, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """A host array on the engine's device (in `dtype`): on the card
-        staged through pinned memory and copied without blocking."""
-        t = torch.from_numpy(x)
-        dtype = dtype or t.dtype
-        if self._device.type != "cuda":
+    def _put(self, x: np.ndarray, dtype: Optional[torch.dtype] = None,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+        """A host array on `device` (default: the engine's; in `dtype`):
+        on the card staged through pinned memory and copied without
+        blocking."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        dtype, device = dtype or t.dtype, device or self._device
+        if device.type != "cuda":
             return t.to(dtype)
         staged = torch.empty(t.shape, dtype=dtype, pin_memory=True)
         staged.copy_(t)
-        return staged.to(self._device, non_blocking=True)
+        return staged.to(device, non_blocking=True)
 
-    def _fetch(self, packed: torch.Tensor):
-        """(host tensor, CUDA event or None): on the card the packed
-        output copied without blocking into pinned memory, behind an event
-        recorded after the copy; the completion thread waits on it."""
-        if packed.device.type != "cuda":
-            return packed, None
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+    def _fetch(self, blocks: list):
+        """(host tensor, CUDA events): the blocks' packed outputs, in row
+        order, as one host tensor. On the card each block is copied
+        without blocking into its rows of one pinned buffer, behind an
+        event recorded on its device after the copy; the completion thread
+        waits on them."""
+        if blocks[0].device.type != "cuda":
+            return torch.cat(blocks), []
+        host = torch.empty((sum(b.shape[0] for b in blocks),) + tuple(blocks[0].shape[1:]),
+                           dtype=blocks[0].dtype, pin_memory=True)
+        events, row = [], 0
+        for b in blocks:
+            with device_scope(b.device):
+                host[row:row + b.shape[0]].copy_(b, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            events.append(done)
+            row += b.shape[0]
+        return host, events
 
     def _device_batch(self, app, motion, mask, tags=None, use_tags=None):
-        """The numpy batch through `self._fn` -> _fetch's pair; `tags` and
-        `use_tags` only where some row is controlled."""
+        """The numpy batch through `self._fn`, once on the engine's device
+        or once per block of rows on the mesh's devices -> _fetch's pair;
+        `tags` and `use_tags` only where some row is controlled."""
+        if self._mesh is None:
+            parts = [(self.params, self._device, slice(None))]
+        else:
+            parts = [(self._replicas[d], d, sl)
+                     for d, sl in zip(self._mesh.devices, shard_rows(app.shape[0], self._mesh))]
         with self._on_device():
-            packed = self._fn(
-                self.params, self._put(app, self._dtype), self._put(motion, self._dtype),
-                self._put(mask),
-                None if tags is None else self._put(tags),
-                None if use_tags is None else self._put(use_tags),
-            )
-            return self._fetch(packed)
+            blocks = []
+            for params, dev, sl in parts:
+                put = lambda x, dtype=None: None if x is None else self._put(x[sl], dtype, dev)
+                with device_scope(dev):
+                    blocks.append(self._fn(params, put(app, self._dtype), put(motion, self._dtype),
+                                           put(mask), put(tags), put(use_tags)))
+            return self._fetch(blocks)
 
     # ------------------------------------------------------------- producers
 
@@ -803,10 +829,10 @@ class ServingEngine:
             item = self._completion.get()
             if item is None:
                 return
-            batch, (host, done), bucket, t_claim, q_ahead = item
+            batch, (host, events), bucket, t_claim, q_ahead = item
             try:
-                if done is not None:
-                    done.synchronize()  # the batch's one transfer has landed
+                for done in events:
+                    done.synchronize()  # the batch's transfers have landed
                 packed = host.numpy()
                 # per-bucket per-slot service time feeds the predictive
                 # shed + bucket choice in _dispatch_loop (alpha 0.3:
@@ -877,8 +903,8 @@ class ServingEngine:
             app = np.zeros((b, m.num_frames, m.app_dim), np.float32)
             mot = np.zeros((b, m.num_frames, m.motion_dim), np.float32)
             mask = np.ones((b, m.num_frames), np.float32)
-            host, done = self._device_batch(app, mot, mask)
-            if done is not None:
+            _, events = self._device_batch(app, mot, mask)
+            for done in events:
                 done.synchronize()
 
     def stats(self) -> dict:

@@ -1,12 +1,21 @@
 """Training loop: epochs, eval on val, best-metric checkpoint retention.
 
-Counterpart of `train_loop` in `controllable_xgating_tpu/train/loop.py`,
-on one device: batches from the iterator -> train step -> eval every
-`eval_every_epochs` through `evaluate_split` -> `last` always and `best` on
-the tracked metric, per-epoch snapshots, early stop. Left out for now: the
-multi-host branches, and the JAX package's prefetch thread
-(`data/features.py`, an HDF5 module): batches are built on the host
-between steps, and the step moves each to the card.
+Counterpart of `train_loop` in `controllable_xgating_tpu/train/loop.py`:
+batches from the iterator -> train step -> eval every `eval_every_epochs`
+through `evaluate_split` -> `last` always and `best` on the tracked
+metric, per-epoch snapshots, early stop. Left out for now: the JAX
+package's prefetch thread (`data/features.py`, an HDF5 module): batches
+are built on the host between steps, and the step moves each to the card.
+
+Under data parallelism (`parallel/distributed.py`: one process per card,
+the step a data-parallel one) every process runs the steps, and the side
+effects are the primary's alone: the log lines, the epoch snapshots, the
+val eval (on its own card, with its own copy of the parameters, which
+every process holds alike) and the `last` / `best` saves. The peers go on
+to the next epoch's step and wait in its all-reduce meanwhile (the
+collective timeout, `distributed.DEFAULT_TIMEOUT_S`, outlasts a val
+eval). The early-stop decision is broadcast from the primary, so that no
+peer waits for a step the primary never takes.
 """
 
 from __future__ import annotations
@@ -19,6 +28,11 @@ import torch
 
 from controllable_xgating_torch.data.loader import TrainBatchIterator
 from controllable_xgating_torch.infer.evaluator import evaluate_split
+from controllable_xgating_torch.parallel.distributed import (
+    broadcast_flag,
+    is_multiprocess,
+    is_primary,
+)
 from controllable_xgating_torch.train.state import CheckpointManager, TrainState
 from controllable_xgating_torch.utils.logging import JsonlLogger, get_logger
 
@@ -52,6 +66,7 @@ def train_loop(
     start_step = int(state.step)
     batches = iter(train_iter)
     caption_fn = _make_select_caption_fn(cfg)
+    primary = is_primary()
 
     for epoch in range(epochs):
         t0 = time.time()
@@ -60,18 +75,19 @@ def train_loop(
             state, metrics = step_fn(state, next(batches))
             losses.append(metrics["loss"])
             step = start_step + epoch * steps_per_epoch + i + 1
-            if step % cfg.train.log_every_steps == 0:
+            if step % cfg.train.log_every_steps == 0 and primary:
                 jsonl.log(step, epoch=epoch, **{k: float(v) for k, v in metrics.items()})
         global_step = start_step + (epoch + 1) * steps_per_epoch
         # one transfer per epoch for the summary
         mean_loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
         dt = time.time() - t0
         samples = steps_per_epoch * train_iter.batch_size
-        log.info("epoch %d loss %.4f (%.1f samples/s)", epoch, mean_loss, samples / dt)
+        if primary:
+            log.info("epoch %d loss %.4f (%.1f samples/s)", epoch, mean_loss, samples / dt)
         entry = {"epoch": epoch, "loss": mean_loss, "samples_per_sec": samples / dt}
 
         # per-epoch snapshot window ('epoch_<n>' slots, absolute numbering)
-        if ckpt is not None and cfg.train.keep_epoch_snapshots > 0:
+        if ckpt is not None and cfg.train.keep_epoch_snapshots > 0 and primary:
             abs_epoch = epoch + start_step // max(steps_per_epoch, 1)
             ckpt.save(f"epoch_{abs_epoch}", state, {
                 "epoch": abs_epoch, "step": global_step, "best_score": None,
@@ -82,7 +98,8 @@ def train_loop(
                 ckpt.delete(f"epoch_{drop}")
 
         stop = False
-        if (epoch + 1) % cfg.train.eval_every_epochs == 0:
+        eval_epoch = (epoch + 1) % cfg.train.eval_every_epochs == 0
+        if eval_epoch and primary:
             metrics, _ = evaluate_split(
                 state.params, store, labels, info, split=eval_split,
                 batch_size=cfg.data.batch_size, max_len=cfg.eval.max_decode_len,
@@ -109,10 +126,13 @@ def train_loop(
                 epochs_since_improve += 1
             stop = (cfg.train.early_stop_patience > 0
                     and epochs_since_improve >= cfg.train.early_stop_patience)
+        if eval_epoch and cfg.train.early_stop_patience > 0 and is_multiprocess():
+            stop = broadcast_flag(stop)
         history.append(entry)
-        if stop:
+        if stop and primary:
             log.info("early stop at epoch %d: no %s improvement in %d consecutive eval epochs",
                      epoch, track_metric, cfg.train.early_stop_patience)
+        if stop:
             break
     return state, {"best": best_score, "history": history}
 

@@ -1,4 +1,4 @@
-"""Self-critical sequence training (SCST, Rennie et al. 2017) on one device.
+"""Self-critical sequence training (SCST, Rennie et al. 2017).
 
 Counterpart of `controllable_xgating_tpu/train/scst.py`: a greedy baseline
 rollout, a multinomial sample rollout, CIDEr-D rewards for both from token
@@ -42,13 +42,14 @@ from controllable_xgating_torch.ops.cider_device import (
     cider_d_device,
 )
 from controllable_xgating_torch.ops.dispatch import fused_enabled
+from controllable_xgating_torch.parallel.distributed import all_reduce_sum, rank_and_count
 from controllable_xgating_torch.train.state import (
     Optimizer,
     TrainState,
     apply_grad_mask,
     stage_grad_mask,
 )
-from controllable_xgating_torch.train.xe import batch_to_device, param_grads
+from controllable_xgating_torch.train.xe import batch_to_device, param_grads, reduce_over_group
 
 _BATCH_KEYS = ("app", "motion", "video_indices", "frame_mask")
 
@@ -69,16 +70,20 @@ def scst_context(params: CaptionerParams, batch: dict, max_pos_len: int):
 
 
 def reinforce_loss(tables: CiderRewardTables, video_indices: torch.Tensor,
-                   greedy: torch.Tensor, sample: torch.Tensor, logps: torch.Tensor):
+                   greedy: torch.Tensor, sample: torch.Tensor, logps: torch.Tensor,
+                   group=None):
     """(loss, aux) from the two rollouts' tokens [B, L] and logp(sample)
     [B, L]: the advantage reward_s - reward_g carries no gradient, and the
     loss is its product with logp summed over the sample's non-PAD
-    positions, over their count."""
+    positions, over their count; with a process group, over the count
+    summed over its processes (each process's loss is then its share of
+    the global batch's)."""
     reward_s = cider_d_device(tables, sample, video_indices)
     reward_g = cider_d_device(tables, greedy, video_indices)
     advantage = (reward_s - reward_g).detach()
     mask = (sample != PAD).float()
-    loss = -(advantage[:, None] * logps * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = all_reduce_sum(mask.sum().detach(), group)
+    loss = -(advantage[:, None] * logps * mask).sum() / torch.clamp(count, min=1.0)
     aux = {"reward_sample": reward_s.mean(), "reward_greedy": reward_g.mean(),
            "advantage": advantage.mean()}
     return loss, aux
@@ -86,7 +91,7 @@ def reinforce_loss(tables: CiderRewardTables, video_indices: torch.Tensor,
 
 def paired_loss(decoder: DecoderParams, ctx: DecodeContext, summary: torch.Tensor,
                 tables: CiderRewardTables, video_indices: torch.Tensor,
-                greedy: torch.Tensor, sample: torch.Tensor):
+                greedy: torch.Tensor, sample: torch.Tensor, group=None):
     """The paired realization's loss at given tokens: logp(sample) teacher-
     forced through `decoder_forward` on [BOS, sample] (the sampled rows
     feed PAD after EOS, as the rollout did), masked as decoding masks and
@@ -96,7 +101,7 @@ def paired_loss(decoder: DecoderParams, ctx: DecodeContext, summary: torch.Tenso
                          sample], dim=1)
     logits = mask_special_tokens(decoder_forward(decoder, ctx, summary, caps_in).float())
     logps = logits.gather(-1, sample[:, :, None].long())[:, :, 0] - torch.logsumexp(logits, -1)
-    return reinforce_loss(tables, video_indices, greedy, sample, logps)
+    return reinforce_loss(tables, video_indices, greedy, sample, logps, group)
 
 
 def scst_loss(
@@ -108,9 +113,11 @@ def scst_loss(
     max_pos_len: int,
     fused_baseline: bool = False,
     paired: bool = False,
+    group=None,
 ):
     """REINFORCE loss and aux of a batch of tensors, in either of two
-    token-equivalent realizations. `paired=False`: the greedy baseline
+    token-equivalent realizations (normalised over `group`, as
+    `reinforce_loss`). `paired=False`: the greedy baseline
     without gradient, then `sample_decode` with gradient, whose logps are
     the loss's. `paired=True`: one 2B-row `paired_rollout` without
     gradient, then `paired_loss`. `fused_baseline` takes the rollout
@@ -124,41 +131,66 @@ def scst_loss(
     if paired:
         greedy, sample = paired_rollout(params.decoder, ctx_f, summary.detach(), max_len,
                                         generator, fused=fused)
-        return paired_loss(params.decoder, ctx, summary, tables, vi, greedy, sample)
+        return paired_loss(params.decoder, ctx, summary, tables, vi, greedy, sample, group)
     with torch.no_grad():
         greedy = greedy_decode(params.decoder, ctx_f, summary.detach(), max_len, fused=fused)
     sample, logps = sample_decode(params.decoder, ctx, summary, max_len, generator)
-    return reinforce_loss(tables, vi, greedy, sample, logps)
+    return reinforce_loss(tables, vi, greedy, sample, logps, group)
+
+
+def rank_generator(gen: torch.Generator, rank: int) -> torch.Generator:
+    """A sample stream of its own for process `rank`: seeded from a draw
+    of `gen` (which so advances alike on every process) and the rank.
+    `torch.multinomial`'s samples of a block of rows cannot be cut from
+    the global batch's, so a data-parallel step samples other tokens than
+    the one-device step (ROADMAP C)."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device).item())
+    return torch.Generator(device=gen.device).manual_seed(seed + rank)
 
 
 def make_scst_train_step(
     tx: Optimizer, cfg, tables: CiderRewardTables
-) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
-    """The SCST step: `step(state, batch)` moves the batch's app, motion,
+) -> Callable[..., tuple[TrainState, dict]]:
+    """The SCST step: `step(state, batch, group=None)` moves the batch's app, motion,
     frame mask and video indices to the parameters' device, takes the loss
     times `train.scst_cider_weight` (the realization from
     `train.scst_paired_rollout`, the samples from `state.gen`), masks the
     POS generator's gradients to zero and applies `tx`, in place. Metrics:
     loss, grad_norm (of the masked gradients), reward_sample,
     reward_greedy, advantage. The baseline takes the decoder-step kernel
-    unless the kernels are switched off (`ops/dispatch.py`)."""
+    unless the kernels are switched off (`ops/dispatch.py`).
+
+    With a process group of n > 1 processes (`parallel/mesh.py::
+    make_parallel_train_step`) the batch is this process's block of rows:
+    it samples from `rank_generator(state.gen, rank)`, the loss is
+    normalised by the global count, and the gradients and metrics (the
+    rewards' global means) are summed over the processes in one
+    all-reduce before the clip and Adam. Every process builds the same
+    reward tables from the same corpus."""
     max_len = cfg.eval.max_decode_len
     max_pos_len = cfg.model.max_pos_len
     reward_w = cfg.train.scst_cider_weight
     paired = cfg.train.scst_paired_rollout
     fused_baseline = fused_enabled()
 
-    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def step(state: TrainState, batch: dict, group=None) -> tuple[TrainState, dict]:
         named = list(state.params.named_parameters())
         leaves = [p for _, p in named]
         batch = batch_to_device(batch, leaves[0].device, _BATCH_KEYS)
-        loss, aux = scst_loss(state.params, batch, tables, state.gen, max_len, max_pos_len,
-                              fused_baseline=fused_baseline, paired=paired)
+        rank, n = rank_and_count(group)
+        gen = state.gen if n == 1 else rank_generator(state.gen, rank)
+        loss, aux = scst_loss(state.params, batch, tables, gen, max_len, max_pos_len,
+                              fused_baseline=fused_baseline, paired=paired, group=group)
         loss = reward_w * loss
-        grads = apply_grad_mask({n: g for (n, _), g in zip(named, param_grads(loss, leaves))},
+        names = list(aux)
+        # each process's aux are means over its rows: their mean over the
+        # processes is the global batch's
+        grads, scalars = reduce_over_group(
+            param_grads(loss, leaves), [loss.detach()] + [aux[k].detach() / n for k in names],
+            group)
+        grads = apply_grad_mask({n_: g for (n_, _), g in zip(named, grads)},
                                 stage_grad_mask(state.params, "caption"))
         grad_norm = tx.apply(state, grads)
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm,
-                       **{k: v.detach() for k, v in aux.items()}}
+        return state, {"loss": scalars[0], "grad_norm": grad_norm, **dict(zip(names, scalars[1:]))}
 
     return step

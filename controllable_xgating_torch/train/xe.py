@@ -20,6 +20,7 @@ from controllable_xgating_torch.models.encoder import encode
 from controllable_xgating_torch.models.pos_generator import pos_forward
 from controllable_xgating_torch.ops.dispatch import fused_enabled
 from controllable_xgating_torch.ops.kernels.xent import xent_row_stats, xent_row_stats_plain
+from controllable_xgating_torch.parallel.distributed import all_reduce_sum, rank_and_count
 from controllable_xgating_torch.train.state import (
     Optimizer,
     TrainState,
@@ -73,19 +74,22 @@ def xe_losses(
     remat: bool = False,
     reduction: str = "mean",
     label_smoothing: float = 0.0,
+    shard: tuple = (0, 1),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(caption XE, POS XE) on a train batch with caps [B, K, L].
 
     `reduction="sum"` returns un-normalised token-NLL sums, the form
-    gradient accumulation needs. `label_smoothing` applies to the caption
-    term only. Dropout masks come from `gen`: the encoder's, then the
-    decoder's."""
+    gradient accumulation and data parallelism need. `label_smoothing`
+    applies to the caption term only. Dropout masks come from `gen`: the
+    encoder's, then the decoder's; the batch is block `shard` (rank,
+    ranks) of the global batch's rows, whose masks are drawn
+    (`ops/dropout.py::keep_rows`)."""
     app, motion = batch["app"], batch["motion"]
     caps, pos = batch["caps"], batch["pos"]
     frame_mask = batch.get("frame_mask")
     b, k, length = caps.shape
     enc_out, summary = encode(params.encoder, app, motion, frame_mask, gen=gen,
-                              dropout_rate=dropout_rate)
+                              dropout_rate=dropout_rate, shard=shard)
     caps_flat = caps.reshape(b * k, length)
     pos_flat = pos.reshape(b * k, -1)
     summary_k = summary.repeat_interleave(k, dim=0)
@@ -97,7 +101,7 @@ def xe_losses(
     pos_loss = reduce(pos_logits, pos_flat[:, 1:])
     ctx = make_decode_context(params.decoder, enc_out_k, psi, mask_k)
     cap_logits = decoder_forward(params.decoder, ctx, summary_k, caps_flat, gen, dropout_rate,
-                                 remat=remat)
+                                 remat=remat, shard=shard)
     cap_loss = reduce(cap_logits, caps_flat[:, 1:], label_smoothing)
     return cap_loss, pos_loss
 
@@ -115,18 +119,44 @@ def param_grads(loss: torch.Tensor, leaves: list) -> list:
             for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
 
 
+def reduce_over_group(grads: list, scalars: list, group) -> tuple[list, list]:
+    """(gradients, scalars) summed over `group`'s processes in one
+    all-reduce of a flat f32 buffer; unchanged without a group."""
+    if group is None:
+        return grads, scalars
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [torch.stack([s.float() for s in scalars])])
+    all_reduce_sum(flat, group)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+        i += g.numel()
+    return out, list(flat[i:])
+
+
 def make_xe_train_step(
     tx: Optimizer, cfg, stage: str = "joint"
-) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+) -> Callable[..., tuple[TrainState, dict]]:
     """Build the XE step for a stage ('pos' | 'caption' | 'joint').
 
-    `step(state, batch)` takes a batch of numpy arrays or tensors (as
-    `TrainBatchIterator` yields them), moves it to the parameters' device,
-    and returns (state, {"loss", "grad_norm", "cap_loss", "pos_loss"}).
-    With `train.accum_steps` > 1 the batch runs as that many micro-batches,
-    split interleaved (micro-batch m holds rows m, m + accum, ...), whose
-    token-NLL sums are divided by the whole batch's non-PAD counts, so the
-    summed gradient is the full-batch mean-loss gradient."""
+    `step(state, batch, group=None)` takes a batch of numpy arrays or
+    tensors (as `TrainBatchIterator` yields them), moves it to the
+    parameters' device, and returns (state, {"loss", "grad_norm",
+    "cap_loss", "pos_loss"}). The batch runs as `train.accum_steps`
+    micro-batches, split interleaved (micro-batch m holds rows m, m +
+    accum, ...), whose token-NLL sums are divided by the whole batch's
+    non-PAD counts, so the summed gradient is the full-batch mean-loss
+    gradient.
+
+    With a process group (`parallel/mesh.py::make_parallel_train_step`)
+    the batch is this process's block of the global batch's rows: the
+    non-PAD counts are all-reduced first, so each process's sums are
+    divided by the global counts (a mean of per-process means would weigh
+    short captions wrongly), the dropout masks are the global batch's rows
+    (`ops/dropout.py::keep_rows`), and the gradients and metrics are
+    summed over the processes in one all-reduce before the clip and Adam:
+    every process applies the one-device step's update of the global
+    batch. A process's block must divide by `accum`."""
     cap_w = 0.0 if stage == "pos" else 1.0
     pos_w = 0.0 if stage == "caption" else 1.0
     dropout_rate = cfg.model.dropout
@@ -134,42 +164,35 @@ def make_xe_train_step(
     accum = max(int(getattr(cfg.train, "accum_steps", 1)), 1)
     smooth = float(getattr(cfg.train, "label_smoothing", 0.0))
 
-    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def step(state: TrainState, batch: dict, group=None) -> tuple[TrainState, dict]:
         named = list(state.params.named_parameters())
         leaves = [p for _, p in named]
-        grads_of = lambda loss: param_grads(loss, leaves)
         batch = batch_to_device(batch, leaves[0].device)
         b = batch["caps"].shape[0]
         if b % accum:
             raise ValueError(f"data.batch_size {b} must be divisible by train.accum_steps {accum}")
-        if accum == 1:
-            cap_loss, pos_loss = xe_losses(state.params, batch, state.gen, dropout_rate, remat,
-                                           label_smoothing=smooth)
-            total = cap_w * cap_loss + pos_w * pos_loss
-            grads = grads_of(total)
-        else:
-            cap_n = torch.clamp((batch["caps"][..., 1:] != PAD).sum().float(), min=1.0)
-            pos_n = torch.clamp((batch["pos"][..., 1:] != PAD).sum().float(), min=1.0)
-            grads, total, cap_loss, pos_loss = None, 0.0, 0.0, 0.0
-            for m in range(accum):
-                mb = {k: v[m::accum] for k, v in batch.items()}
-                cap_sum, pos_sum = xe_losses(state.params, mb, state.gen, dropout_rate, remat,
-                                             reduction="sum", label_smoothing=smooth)
-                micro = cap_w * cap_sum / cap_n + pos_w * pos_sum / pos_n
-                g = grads_of(micro)
-                grads = g if grads is None else [a + c for a, c in zip(grads, g)]
-                total = total + micro.detach()
-                cap_loss = cap_loss + cap_sum.detach() / cap_n
-                pos_loss = pos_loss + pos_sum.detach() / pos_n
+        shard = rank_and_count(group)
+        counts = torch.stack([(batch["caps"][..., 1:] != PAD).sum(),
+                              (batch["pos"][..., 1:] != PAD).sum()]).float()
+        cap_n, pos_n = torch.clamp(all_reduce_sum(counts, group), min=1.0)
+        grads, total, cap_loss, pos_loss = None, 0.0, 0.0, 0.0
+        for m in range(accum):
+            mb = {k: v[m::accum] for k, v in batch.items()}
+            cap_sum, pos_sum = xe_losses(state.params, mb, state.gen, dropout_rate, remat,
+                                         reduction="sum", label_smoothing=smooth, shard=shard)
+            micro = cap_w * cap_sum / cap_n + pos_w * pos_sum / pos_n
+            g = param_grads(micro, leaves)
+            grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+            total = total + micro.detach()
+            cap_loss = cap_loss + cap_sum.detach() / cap_n
+            pos_loss = pos_loss + pos_sum.detach() / pos_n
+        grads, (total, cap_loss, pos_loss) = reduce_over_group(
+            grads, [total, cap_loss, pos_loss], group)
         grads = apply_grad_mask({n: g for (n, _), g in zip(named, grads)},
                                 stage_grad_mask(state.params, stage))
         grad_norm = tx.apply(state, grads)
-        metrics = {
-            "loss": total.detach(),
-            "grad_norm": grad_norm,
-            "cap_loss": cap_loss.detach(),
-            "pos_loss": pos_loss.detach(),
-        }
+        metrics = {"loss": total, "grad_norm": grad_norm, "cap_loss": cap_loss,
+                   "pos_loss": pos_loss}
         return state, metrics
 
     return step

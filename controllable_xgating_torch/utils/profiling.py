@@ -113,19 +113,36 @@ def kernel_launch_us(fn, calls: int = 10) -> dict:
     kernel name: one entry per kernel event the profiler kept. The
     profiler may keep fewer events than there were launches (8 of 10 on
     the card for the cross-entropy kernels), so a sum over them divided by
-    `calls` under-reads."""
+    `calls` under-reads. Where the kernel wrappers counted launches in the
+    profiled calls but the profile kept no event of the port's kernels,
+    the profile is taken once more; a kernel still without an event is
+    absent from the result: not measured, never 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from controllable_xgating_torch.ops import kernels
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(2):
+        before = sum(kernels.launch_counts().values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(kernels.launch_counts().values()) - before
+        out = kept_kernel_events(prof.events(), DeviceType.CUDA)
+        if out or not launched:
+            break
+    return out
+
+
+def kept_kernel_events(events, device_type) -> dict:
+    """{kernel name: [device us of each kept event]} of the port's own
+    kernels (`cxg::`) among a profile's events."""
     out: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "cxg::" in e.name:
+    for e in events:
+        if e.device_type == device_type and "cxg::" in e.name:
             out.setdefault(e.name.split("(")[0].replace("void ", ""), []).append(
                 e.time_range.elapsed_us())
     return out
@@ -135,15 +152,17 @@ def kernel_device_split(fn, calls: int = 10) -> dict:
     """Device microseconds per call of `fn` in each of the port's own CUDA
     kernels, by kernel name: the median launch of `kernel_launch_us` times
     the launches a call makes (the events kept over `calls`, rounded, at
-    least 1)."""
+    least 1). A kernel the profiler kept no event of is absent."""
     return {name: sorted(us)[len(us) // 2] * max(1, round(len(us) / calls))
             for name, us in kernel_launch_us(fn, calls).items()}
 
 
-def kernel_device_us(fn, calls: int = 10) -> float:
+def kernel_device_us(fn, calls: int = 10):
     """Device microseconds per call of `fn` in the port's own CUDA kernels,
-    all of them together (`kernel_device_split`)."""
-    return sum(kernel_device_split(fn, calls).values())
+    all of them together (`kernel_device_split`), or None (not measured)
+    where the profiler kept none of their events."""
+    split = kernel_device_split(fn, calls)
+    return sum(split.values()) if split else None
 
 
 def caption_calls(cfg, dev):

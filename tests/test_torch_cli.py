@@ -254,10 +254,8 @@ def test_cli_without_a_card_refuses_cuda(fixture, monkeypatch, capsys, main, tmp
 
 
 DEFERRED = [
-    pytest.param("train", ["--parallel.num_devices", "4"], "A7", id="train-num_devices"),
     pytest.param("caption", ["--video", "video0", "--profile", "prof"], "A10", id="caption-profile"),
     pytest.param("train", ["--debug_nans"], "A10", id="train-debug_nans"),
-    pytest.param("serve", ["--devices", "2"], "A7", id="serve-devices"),
 ]
 
 
@@ -286,15 +284,19 @@ def http_json(url, payload=None):
         return e.code, json.loads(e.read())
 
 
-@pytest.mark.parametrize("mode,dtype", [("greedy", "float32"), ("beam", "bfloat16")])
-def test_serve_cli_end_to_end(fixture, jax_captions, mode, dtype):
+@pytest.mark.parametrize("mode,dtype,devices", [
+    ("greedy", "float32", 0), ("beam", "bfloat16", 0), ("greedy", "float32", 2),
+], ids=["greedy-float32", "beam-bfloat16", "greedy-float32-devices2"])
+def test_serve_cli_end_to_end(fixture, jax_captions, mode, dtype, devices):
     """`cli.serve.start` on port 0 on the fixture corpus: /caption by video
     id answers `cli.caption`'s caption and POS sequence under the same
     flags (beam: `--beam_size 3`, eval.beam_size's width), with user tags
     the JAX caption CLI's controlled caption; an unknown id is 400; /stats
     counts the requests. The engine serves under the compute dtype the
     CLI picked (here bf16 on the CPU when asked), while the process's
-    policy is left as found."""
+    policy is left as found. `--devices 2` serves over a mesh of two CPU
+    entries: bucket 1 is dropped (2 does not divide it), bucket 2 splits
+    into a row a device, and the answers are the same."""
     data, _, tdir = fixture
     flags = ["--compute_dtype", dtype, *SMALL, *PORT_FLAGS]
     want = json_lines(run_cli(t_caption.main, [
@@ -304,10 +306,15 @@ def test_serve_cli_end_to_end(fixture, jax_captions, mode, dtype):
     with contextlib.redirect_stdout(buf):
         httpd, engine = t_serve.start([
             "--data_dir", data, "--checkpoint_dir", tdir, "--port", "0", "--mode", mode,
-            "--buckets", "1,2", "--max_wait_ms", "2", *flags])
+            "--buckets", "1,2", "--max_wait_ms", "2", *flags,
+            *(["--devices", str(devices)] if devices else [])])
     assert compute_dtype() == torch.float32
-    events = [e["event"] for e in json_lines(buf.getvalue())]
-    assert events == ["warmup", "serving"]
+    events = json_lines(buf.getvalue())
+    if devices:
+        assert events[:2] == [{"event": "buckets_filtered", "dropped": [1], "kept": [2]},
+                              {"event": "mesh", "devices": 2}]
+        events = events[2:]
+    assert [e["event"] for e in events] == ["warmup", "serving"]
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -328,6 +335,7 @@ def test_serve_cli_end_to_end(fixture, jax_captions, mode, dtype):
         assert code == 400 and "nope" in resp["error"]
         code, stats = http_json(base + "/stats")
         assert code == 200 and stats["requests"] == n and stats["mode"] == mode
+        assert stats["buckets"] == ([2] if devices else [1, 2])
     finally:
         httpd.shutdown()
         httpd.server_close()

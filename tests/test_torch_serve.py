@@ -247,12 +247,6 @@ def test_constructor_refuses_bad_arguments(setup, case):
         setup.engine(**kw)
 
 
-def test_mesh_serving_refused_until_data_parallelism(setup):
-    """Data-parallel serving waits for ROADMAP A7: a mesh raises, naming it."""
-    with pytest.raises(ValueError, match="A7"):
-        setup.engine(mode="greedy", buckets=(8,), mesh=object())
-
-
 # --- the device calls' thread state ---
 
 
@@ -927,3 +921,86 @@ def test_http_server_takes_many_connections_at_once(setup):
             httpd.server_close()
             t.join(30)
     assert codes == [200] * 64
+
+
+# --- data-parallel serving over a mesh (the JAX package's config 5 tests) ---
+
+
+def mesh4():
+    from controllable_xgating_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=["cpu"] * 4)
+
+
+MESH_ROWS = [(i % 6, ["DT", "NN"] if i == 2 else None) for i in range(5)]
+
+
+def served_on_mesh(setup, params, mesh, rows=MESH_ROWS, **kw):
+    with setup.engine(params, buckets=(8,), max_wait_ms=40.0, mesh=mesh, **kw) as eng:
+        futs = [eng.submit(*setup.feats[i], pos_tags=t) for i, t in rows]
+        return [f.result(timeout=WAIT) for f in futs]
+
+
+def assert_same_results(got, want):
+    for g, w in zip(got, want):
+        assert (g.caption, g.pos_sequence, g.controlled) == (w.caption, w.pos_sequence,
+                                                             w.controlled)
+        if w.score is not None:
+            np.testing.assert_allclose(g.score, w.score, **SCORE_TOL)
+        if w.nbest is not None:
+            assert [c for c, _ in g.nbest] == [c for c, _ in w.nbest]
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_mesh_dp_serving_matches_single_device(setup, mode):
+    """The engine over a mesh of four CPU entries (parameters replicated,
+    every bucket batch split into blocks of 2 rows) captions as the
+    single-device engine and as the JAX offline path; a bucket the mesh
+    does not divide is refused."""
+    single = served_on_mesh(setup, setup.params, None, mode=mode)
+    sharded = served_on_mesh(setup, setup.params, mesh4(), mode=mode)
+    assert_same_results(sharded, single)
+    assert_matches_jax(setup, sharded, MESH_ROWS, jax_offline(setup, setup.jp, MESH_ROWS, mode))
+    with pytest.raises(ValueError, match="not divisible"):
+        setup.engine(buckets=(2,), mesh=mesh4())
+    with pytest.raises(ValueError, match=r"buckets \[6\] not divisible by the 4-device mesh"):
+        setup.engine(buckets=(4, 6, 8), mesh=mesh4())
+
+
+def test_mesh_ensemble_serving_matches_single_device(setup, two_members):
+    """Ensemble serving over the mesh (members replicated, batch split)
+    captions as the unsharded ensemble engine and as JAX's ensemble."""
+    jstack, members = two_members
+    single = served_on_mesh(setup, members, None, mode="greedy", n_members=2)
+    sharded = served_on_mesh(setup, members, mesh4(), mode="greedy", n_members=2)
+    assert_same_results(sharded, single)
+    rows = [(i, None) for i, _ in MESH_ROWS]
+    free = served_on_mesh(setup, members, mesh4(), rows, mode="greedy", n_members=2)
+    assert_matches_jax(setup, free, rows, jax_offline(setup, jstack, rows, "greedy", members=2))
+
+
+def test_mesh_nbest_serving_matches_single_device(setup):
+    """n-best over the mesh: the packed multi-row layout survives the
+    split (lists and scores equal the unsharded engine's and JAX's)."""
+    rows = [(i, None) for i in range(3)]
+    single = served_on_mesh(setup, setup.params, None, rows, mode="beam", nbest=2)
+    sharded = served_on_mesh(setup, setup.params, mesh4(), rows, mode="beam", nbest=2)
+    assert_same_results(sharded, single)
+    for g, w in zip(sharded, single):
+        np.testing.assert_allclose([s for _, s in g.nbest], [s for _, s in w.nbest], **SCORE_TOL)
+    assert_matches_jax(setup, sharded, rows, jax_offline(setup, setup.jp, rows, "beam", 2), 2)
+
+
+def test_mesh_engine_warms_and_serves_every_bucket(setup):
+    """warmup() runs every bucket over the mesh; a full bucket of 8 and a
+    single request (bucket 4: a row a device) both answer as offline."""
+    with setup.engine(mode="greedy", buckets=(4, 8), max_wait_ms=40.0, mesh=mesh4()) as eng:
+        eng.warmup()
+        futs = [eng.submit(*setup.feats[i % 6]) for i in range(8)]
+        full = [f.result(timeout=WAIT) for f in futs]
+        solo = eng.caption(*setup.feats[3], timeout=WAIT)
+        stats = eng.stats()
+    for i, res in enumerate(full):
+        assert_result(res, setup.expected(*setup.feats[i % 6]))
+    assert_result(solo, setup.expected(*setup.feats[3]))
+    assert solo.batch_size == 4 and stats["requests"] == 9
