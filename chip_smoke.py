@@ -2,8 +2,10 @@
 """Drive the PyTorch port's captioning (its decode loops as replayed CUDA
 graphs and as eager loops), quantized-decoding, ensemble and diverse-beam,
 XE-training and SCST paths, its command-line entry points, its serving
-path, its own corpus -> train -> eval -> controllability study and its
-data-parallel path once on one NVIDIA GPU.
+path, its own corpus -> train -> eval -> controllability study, its
+data-parallel path and its host runtime and measurement surface (the
+native metric library, `--profile`, `--debug_nans`, the roofline
+shares) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -120,6 +122,20 @@ Phases, each fatal on failure:
      --beam_size 6 --eval.diversity_groups 3` (K1-K3, no topk_tail, finite
      metrics); each CLI must leave the process's compute policy as it
      found it;
+  9b. the native host runtime and the measurement surface (`host_phase`,
+     in build/chip_smoke_host, on the same corpus): the port's native
+     library must build; `cli.eval --beam_size 5` in turns with the
+     metrics native and Python (captions equal, metrics within rel 1e-9;
+     captions/s, metric and decode wall); native vs Python tokens, stems,
+     METEOR (with and without synonyms), ROUGE-L on its captions and the
+     df table at MSR-VTT's caption scale (bit for bit; host seconds);
+     `cli.train --profile` and `cli.eval --profile` traces whose kernel
+     events count the run's launches (K5; K1-K4), the profiled eval equal
+     to the unprofiled one; `cli.train --debug_nans` (f32) logging the
+     run's values without it (rtol 1e-6), raising FloatingPointError on a
+     copy with one NaN planted in the features, completing without the
+     flag; the roofline shares of the graphed beam-5 and greedy calls and
+     the XE step (`utils/roofline.py`, each <= 1.05);
   10. the serving path (`serve_phase`; `serve/engine.py` and
      `serve/server.py`, beam 5, buckets 1, 4, 16, 64): K1-K4 against
      their plain versions at bucket 1's and 4's shapes (f32 and bf16);
@@ -156,7 +172,9 @@ Phases, each fatal on failure:
      `tools.controllability_eval` with two templates (K1-K3) and
      `cli.caption` of one test video free (K1-K3) and with `--pos_tags`
      (no K2); `cli.score --per_video --bootstrap 200` on the eval's
-     captions (its metrics the eval's);
+     captions (its metrics the eval's); the beam-5 call on the trained
+     weights through `utils/debug.py::kernel_plain_diff` under f32
+     (tokens equal, floats within rtol 1e-4, atol 1e-5);
   12. data parallelism (`dp_phase`, in build/chip_smoke_dp): (a)
      `cli.train` under the CXG_* variables at world size 1 over NCCL,
      equal bit for bit under f32 to the run without a process group;
@@ -212,9 +230,6 @@ TOPK_KERNELS = ("topk_tail", "topk_extract")
 XENT_DX_ATOL = 1e-6
 AGREE_MIN = 0.98
 TRAIN_VIDEOS = 128  # two batches of 64 per epoch
-# the card's peaks for the kernels' bounds (H100 SXM data sheet, dense):
-# HBM bytes/s, bf16 tensor-core and f32 non-tensor-core operations/s
-HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 989e12, 67e12
 PATH_KERNELS = {
     "beam-5": ("xgate", "pos_lstm", "attn_lstm", "topk_tail"),
     "greedy": ("xgate", "pos_lstm", "attn_lstm"),
@@ -686,11 +701,18 @@ def check_topk(dev) -> dict:
     return ms
 
 
-def bound(nbytes: float, ops: float, ops_s: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
     bytes moved (each input read once, each output written once) over HBM
-    bandwidth and the operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_s
+    bandwidth and the operations over the peak rate for their type (bf16
+    on the tensor cores, f32 outside them), the card's published peaks
+    from `utils/roofline.py`."""
+    import torch
+
+    from controllable_xgating_torch.utils.roofline import device_peaks
+
+    ops_s, hbm_s, _ = device_peaks(torch.cuda.get_device_name(0), dtype)
+    t_bytes, t_ops = nbytes / hbm_s, ops / ops_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -710,20 +732,20 @@ def caption_bounds(params, b: int = B) -> dict:
     return {
         # ea, em, two gates and the split Wf: 2 R H (Da + Dm + 4H)
         "xgate": bound(c * (rows * (da + dm + h) + h * (da + dm + 4 * h)) + 4 * 5 * h,
-                       2 * rows * h * (da + dm + 4 * h), BF16_OPS_S),
+                       2 * rows * h * (da + dm + 4 * h), "bfloat16"),
         # gates = e @ wih_e + s_gates + h @ whh + b, then the cell
         "pos_lstm": bound(c * (b * (e_p + hp) + (e_p + hp) * 4 * hp)
                           + 4 * (b * 4 * hp + 4 * hp + 3 * b * hp),
-                          2 * b * (e_p + hp) * 4 * hp, BF16_OPS_S),
+                          2 * b * (e_p + hp) * 4 * hp, "bfloat16"),
         # keys and projected memory [R, T, A|G] dominate the bytes
         "attn_lstm": bound(c * (r * (hd + e + T * (a + g) + 2 * g)
                                 + hd * a + a + (hd + e) * g + (e + g + hd) * 4 * hd)
                            + 4 * (r * hd + 2 * r * T + a + g + 4 * hd + 2 * r * hd),
                            2 * r * (hd * a + (hd + e) * g + (e + g + hd) * 4 * hd)
-                           + 2 * r * T * (a + g), BF16_OPS_S),
+                           + 2 * r * T * (a + g), "bfloat16"),
         # h @ w_out over the whole vocab; K values, ids and the lse out
         "topk_tail": bound(c * (r * hd + hd * v) + 4 * v + 4 * r * (2 * K + 1),
-                           2 * r * hd * v, BF16_OPS_S),
+                           2 * r * hd * v, "bfloat16"),
     }
 
 
@@ -733,7 +755,7 @@ def int8_bound(rows: int, hd: int, v: int) -> tuple[float, str]:
     f32 logits; the products run on the bf16 tensor cores."""
     vpad = -(-v // 1024) * 1024
     return bound(2 * rows * hd + hd * vpad + 4 * 2 * vpad + 4 * rows * v, 2 * rows * hd * v,
-                 BF16_OPS_S)
+                 "bfloat16")
 
 
 def quant_bounds(params) -> dict:
@@ -752,8 +774,8 @@ def xent_bounds(n: int, v: int) -> dict:
     targets, lse and three cotangents and writes dx. About four f32
     operations per element each (max or subtract, exp, add or fma)."""
     return {
-        "xent_fwd": bound(4 * n * v + 8 * n + 12 * n, 4 * n * v, F32_OPS_S),
-        "xent_bwd": bound(8 * n * v + 8 * n + 16 * n, 4 * n * v, F32_OPS_S),
+        "xent_fwd": bound(4 * n * v + 8 * n + 12 * n, 4 * n * v, "float32"),
+        "xent_bwd": bound(8 * n * v + 8 * n + 16 * n, 4 * n * v, "float32"),
     }
 
 
@@ -895,9 +917,9 @@ def check_xent(dev, n: int, v: int, smoothing: float = 0.1) -> dict:
     return out
 
 
-def train_phase(cfg, dev) -> dict:
+def train_phase(cfg, dev) -> tuple[dict, float]:
     """The XE-training path; returns the xent launch counts of the bf16
-    main-path run."""
+    main-path run and its seconds per step."""
     import numpy as np
     import torch
 
@@ -931,6 +953,7 @@ def train_phase(cfg, dev) -> dict:
         state, m = step(state, next(batches))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    step_s = dt / 5
     counts = kernels.launch_counts()
     print(f"xe-train launches {counts}")
     if any(counts[n] != 6 for n in PATH_KERNELS["xe-train"]):
@@ -989,7 +1012,7 @@ def train_phase(cfg, dev) -> dict:
     print(f"xe-train [bfloat16, dropout 0] ten steps on one batch: loss {losses}")
     if not losses[-1] < losses[0]:
         fail("xe-train: ten steps on one batch did not lower the loss")
-    return counts
+    return counts, step_s
 
 
 # SCST at MSR-VTT's caption scale: 10000 videos x 20 captions, df over
@@ -1470,6 +1493,342 @@ def cli_phase(dev, cfg) -> dict:
             "eval_ensemble_captions_s": n_test / ens_dt,
             "eval_diverse_beam6_captions_s": n_test / div_dt,
             "library_wall_split_s": splits}
+
+
+# the host runtime and the measurement surface (`host_phase`): the native
+# library under the metrics and the df build, `--profile`, `--debug_nans`
+# and the roofline shares
+HOST_SYNONYM_PAIRS = 200  # synonym groups of two corpus words each, for METEOR's stage 3
+HOST_REL = 1e-9  # native vs Python metrics (tests/test_native_text.py's bar)
+ROOFLINE_MAX = 1.05  # a share above this means the cost model or the clock is wrong
+# per kernel wrapper: the device kernel a trace counts (bf16 policy) and
+# how many of its events one wrapper launch makes
+TRACE_KERNELS = {"xgate": ("xgate_chain_kernel", 3), "pos_lstm": ("pos_lstm_wgmma_kernel", 1),
+                 "attn_lstm": ("attn_rows_kernel", 1), "topk_tail": ("topk_merge_kernel", 1),
+                 "xent_fwd": ("xent_fwd_kernel", 1), "xent_bwd": ("xent_bwd_kernel", 1)}
+
+
+def trace_counts(logdir: str) -> tuple[dict, dict, float]:
+    """({wrapper: its kernel's device events / events per launch}, {entry
+    point: user annotations}, MiB) of the one `torch.profiler` trace in
+    `logdir`."""
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"--profile {logdir}: expected one trace, found {files}")
+    path = os.path.join(logdir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    seen, notes = {}, {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel":
+            for wrapper, (kernel, per) in TRACE_KERNELS.items():
+                if f"cxg::{kernel}" in name:
+                    seen[wrapper] = seen.get(wrapper, 0) + 1 / per
+        elif e.get("cat") == "user_annotation" and name.startswith("cxg_"):
+            notes[name] = notes.get(name, 0) + 1
+    return {k: round(v, 3) for k, v in seen.items()}, notes, os.path.getsize(path) / 2 ** 20
+
+
+class python_metrics:
+    """The port's native library out of reach for the span: every entry
+    point of `utils/native.py` returns None, so the scorers and the
+    tokenizer take their pure-Python paths."""
+
+    def __enter__(self):
+        from controllable_xgating_torch.utils import native
+
+        self.native, self.saved = native, (native._LIB, native._TRIED)
+        native._LIB, native._TRIED = None, True
+
+    def __exit__(self, *exc):
+        self.native._LIB, self.native._TRIED = self.saved
+
+
+def train_losses(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "train_log.jsonl")) as f:
+        return [{k: v for k, v in e.items() if k != "ts"} for e in map(json.loads, f)]
+
+
+def host_phase(dev, cfg, graph_rows: dict, xe_step_s: float) -> dict:
+    """The native host runtime and the measurement surface, on the CLI
+    corpus (`write_cli_corpus`, seed 2, in build/chip_smoke_host), the
+    CLIs through `main(argv)` with their launches counted:
+    (a) the port's native library must build and load. `cli.eval
+    --beam_size 5` over the 256 test videos in turns with the metrics
+    native and Python (native, python, python, native): captions equal,
+    metrics within rel HOST_REL, captions/s and the metric and decode wall
+    of each; on that eval's captions and references, native and Python
+    tokens and stems equal, METEOR (with and without a synonym table) and
+    ROUGE-L within HOST_REL; the native df builder against the numpy build
+    at MSR-VTT's caption scale, bit for bit, both builds' host seconds. (b) `cli.train --profile` and
+    `cli.eval --beam_size 5 --profile` each write one trace whose kernel
+    events count the run's launches (K5 forward and backward; K1-K4, with
+    the launches of the graph captures' warm-ups, which the counters leave
+    out: `infer/graphs.py::WARMUP_LAUNCHES`); the
+    profiled eval's captions and metrics equal the unprofiled run's. (c)
+    `cli.train --debug_nans` on the clean corpus logs the losses of the run
+    without it (f32 rtol 1e-6); on a copy with one NaN in a train video's
+    appearance features it raises FloatingPointError, and without the flag
+    it completes. (d) the roofline shares (`utils/roofline.py`, the card's
+    published peaks) of the graphed beam-5 and greedy calls and of the XE
+    step that the earlier phases timed, each at most ROOFLINE_MAX.
+    Returns the phase's numbers."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.cli import eval as cli_eval
+    from controllable_xgating_torch.cli import train as cli_train
+    from controllable_xgating_torch.data.tokenizer import PTBTokenizer
+    from controllable_xgating_torch.infer import evaluator, graphs
+    from controllable_xgating_torch.metrics.meteor import MeteorScorer
+    from controllable_xgating_torch.metrics.rouge import RougeScorer
+    from controllable_xgating_torch.metrics.stemmer import stem
+    from controllable_xgating_torch.ops import cider_device as cd
+    from controllable_xgating_torch.ops import dispatch
+    from controllable_xgating_torch.utils import native, roofline
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"host: the port's native library did not build or load ({native.library_path()})")
+    print(f"host native library {os.path.relpath(native.library_path(), HERE)}: built or loaded "
+          f"in {time.perf_counter() - t0:.2f} s")
+    root = os.path.join(HERE, "build", "chip_smoke_host")
+    shutil.rmtree(root, ignore_errors=True)
+    data, ck = os.path.join(root, "corpus"), os.path.join(root, "ck")
+    write_cli_corpus(data, cfg, seed=2)
+    base = ["--data_dir", data, "--config", os.path.join(HERE, "configs", "msrvtt.json")]
+    joint = os.path.join(ck, "joint")
+    counts: dict = {}
+
+    # (b) train --profile (also the checkpoint of the evals): K5 in its trace
+    prof = os.path.join(root, "prof_train")
+    counted_cli("host train --profile", cli_train.main,
+                base + ["--checkpoint_dir", ck, "--stage", "joint", "--epochs", "1",
+                        "--profile", prof], counts, ("xent_fwd", "xent_bwd"))
+    seen, notes, mib = trace_counts(prof)
+    got = counts["host train --profile"]
+    print(f"host train --profile [joint, 1 epoch, {CARD}]: one trace of {mib:.1f} MiB, kernel "
+          f"events per launch {json.dumps(seen)}, entry-point annotations {json.dumps(notes)}")
+    for name in ("xent_fwd", "xent_bwd"):
+        if seen.get(name) != got[name]:
+            fail(f"host train --profile: the trace holds {seen.get(name)} {name} launches, the "
+                 f"run launched {got[name]}")
+    out["profile_train"] = {"trace": seen, "launches": {n: got[n] for n in ("xent_fwd", "xent_bwd")},
+                            "trace_mib": mib}
+
+    # (a) cli.eval beam 5 in turns, its metrics native and Python
+    timing: dict = {}
+    captured: dict = {}
+    language_eval, make_beam = evaluator.language_eval, cli_eval.make_beam_caption_fn
+
+    def timed_eval(gts, res, **kw):
+        t = time.perf_counter()
+        scored = language_eval(gts, res, **kw)
+        timing["metrics_s"] += time.perf_counter() - t
+        captured.update(gts=gts, res=res)
+        return scored
+
+    def timed_beam(*a, **kw):
+        fn = make_beam(*a, **kw)
+
+        def call(*x):
+            t = time.perf_counter()
+            tokens = fn(*x)
+            torch.cuda.synchronize()
+            timing["decode_s"] += time.perf_counter() - t
+            return tokens
+
+        return call
+
+    n_test = CLI_SPLITS["test"]
+    eval_argv = base + ["--checkpoint_dir", joint, "--split", "test", "--beam_size", "5"]
+    runs: dict = {"native": [], "python": []}
+    results = {}
+    evaluator.language_eval, cli_eval.make_beam_caption_fn = timed_eval, timed_beam
+    try:
+        for i, mode in enumerate(("native", "python", "python", "native")):
+            path = os.path.join(root, f"eval_{i}.json")
+            timing.update(metrics_s=0.0, decode_s=0.0)
+            with python_metrics() if mode == "python" else contextlib.nullcontext():
+                _, dt = counted_cli(f"host eval-beam-5 [{mode} metrics]", cli_eval.main,
+                                    eval_argv + ["--out", path], counts,
+                                    (*CLI_CAPTION_KERNELS, "topk_tail"))
+            with open(path) as f:
+                results[i] = json.load(f)
+            runs[mode].append({"captions_s": n_test / dt, "wall_s": dt, **timing})
+    finally:
+        evaluator.language_eval, cli_eval.make_beam_caption_fn = language_eval, make_beam
+    ref = results[0]
+    for i, res in results.items():
+        if res["captions"] != ref["captions"]:
+            fail(f"host eval: run {i}'s captions differ from the first run's")
+        for k, v in res["metrics"].items():
+            if not math.isclose(v, ref["metrics"][k], rel_tol=HOST_REL, abs_tol=1e-12):
+                fail(f"host eval: {k} {v} (run {i}) vs {ref['metrics'][k]} (native)")
+    out["eval"] = runs
+    print(f"host eval [beam 5, {n_test} test videos, bf16, {CARD}], in turns native, python, "
+          f"python, native metrics: captions equal, metrics within rel {HOST_REL}; captions/s "
+          f"native {[round(r['captions_s'], 2) for r in runs['native']]}, python "
+          f"{[round(r['captions_s'], 2) for r in runs['python']]}; metric wall s native "
+          f"{[round(r['metrics_s'], 4) for r in runs['native']]}, python "
+          f"{[round(r['metrics_s'], 4) for r in runs['python']]}; decode wall s native "
+          f"{[round(r['decode_s'], 4) for r in runs['native']]}, python "
+          f"{[round(r['decode_s'], 4) for r in runs['python']]}; metrics "
+          f"{json.dumps(ref['metrics'])}")
+
+    # (a) the text paths on that eval's captions and references
+    gts, res = captured["gts"], captured["res"]
+    texts = [c for caps in gts.values() for c in caps] + [c[0] for c in res.values()]
+    tok = PTBTokenizer()
+    if any(native.ptb_tokenize(s) != tok.tokenize_python(s) for s in texts):
+        fail("host: native tokens differ from the Python tokenizer's")
+    words = sorted({w for s in texts for w in s.split()})
+    if any(native.porter_stem(w) != stem(w) for w in words):
+        fail("host: native stems differ from the Python stemmer's")
+    synonyms = [(words[2 * i], words[2 * i + 1]) for i in range(min(HOST_SYNONYM_PAIRS,
+                                                                      len(words) // 2))]
+    scores, walls = {}, {}
+    for name, make in (("METEOR", lambda nat: MeteorScorer(use_native=nat)),
+                       ("METEOR+synonyms", lambda nat: MeteorScorer(use_native=nat,
+                                                                    synonyms=synonyms)),
+                       ("ROUGE_L", lambda nat: RougeScorer())):
+        for nat in (True, False):
+            t = time.perf_counter()
+            with contextlib.nullcontext() if nat else python_metrics():
+                scores[name, nat] = make(nat).score(gts, res)
+            walls[f"{name} {'native' if nat else 'python'}"] = time.perf_counter() - t
+        (a, per_a), (b, per_b) = scores[name, True], scores[name, False]
+        if not math.isclose(a, b, rel_tol=HOST_REL, abs_tol=1e-12) or not np.allclose(
+                per_a, per_b, rtol=HOST_REL, atol=1e-12):
+            fail(f"host: {name} native {a} vs python {b}")
+    out["text"] = {"texts": len(texts), "words": len(words), "wall_s": walls,
+                   "scores": {n: scores[n, True][0] for n, _ in scores}}
+    print(f"host text paths [{len(texts)} captions and references, {len(words)} words, "
+          f"{len(synonyms)} synonym groups]: tokens and stems equal; METEOR, METEOR with "
+          f"synonyms, ROUGE-L within rel {HOST_REL}; host s {json.dumps(walls)}")
+
+    # (a) the SCST reward tables' df at MSR-VTT's caption scale: the native
+    # builder against the numpy build `ops/cider_device.py` keeps
+    caps, _ = draw_captions(np.random.default_rng(4), SCST_VIDEOS, SCST_CAPS)
+    ncaps = np.full(SCST_VIDEOS, SCST_CAPS, np.int32)
+    vids = list(range(SCST_DF_VIDEOS))
+    built, walls = {}, {}
+    for name in ("native", "numpy", "native again", "numpy again"):
+        t = time.perf_counter()
+        built[name] = native.build_df(caps, ncaps, vids) if name.startswith("native") \
+            else cd._df_table(caps, ncaps, vids)
+        walls[name] = time.perf_counter() - t
+    h1, h2, df_native = built["native"]
+    keys, df = built["numpy"]
+    if not (np.array_equal((h1.astype(np.uint64) << np.uint64(32)) | h2, keys)
+            and np.array_equal(df_native.view(np.uint32), df.view(np.uint32))):
+        fail("host: the native df table differs from the numpy build")
+    out["df_build_s"] = walls
+    print(f"host df table [{SCST_VIDEOS} videos x {SCST_CAPS} captions, df over {SCST_DF_VIDEOS}, "
+          f"{len(keys)} n-grams, {CARD}]: native equals numpy bit for bit; host s "
+          f"{json.dumps(walls)}")
+
+    # (b) eval --profile: K1-K4 in its trace, the unprofiled run's results
+    prof = os.path.join(root, "prof_eval")
+    path = os.path.join(root, "eval_profiled.json")
+    graphs.WARMUP_LAUNCHES.clear()
+    counted_cli("host eval-beam-5 --profile", cli_eval.main,
+                eval_argv + ["--out", path, "--profile", prof], counts,
+                (*CLI_CAPTION_KERNELS, "topk_tail"))
+    warmup = dict(graphs.WARMUP_LAUNCHES)
+    with open(path) as f:
+        res_prof = json.load(f)
+    if res_prof["captions"] != ref["captions"] or res_prof["metrics"] != ref["metrics"]:
+        fail("host eval --profile: captions or metrics differ from the unprofiled run's")
+    seen, notes, mib = trace_counts(prof)
+    got = counts["host eval-beam-5 --profile"]
+    print(f"host eval --profile [beam 5, {n_test} test videos, {CARD}]: one trace of {mib:.1f} "
+          f"MiB; kernel events per launch {json.dumps(seen)} against launches "
+          f"{json.dumps({n: got[n] for n in seen})} plus the graph captures' warm-up "
+          f"{json.dumps(warmup)} (real launches the counters leave out); entry-point "
+          f"annotations (eager calls, warm-ups and captures) {json.dumps(notes)}; captions and "
+          f"metrics equal the unprofiled run's")
+    for name in (*CLI_CAPTION_KERNELS, "topk_tail"):
+        if seen.get(name) != got[name] + warmup.get(name, 0):
+            fail(f"host eval --profile: the trace holds {seen.get(name)} {name} launches, the "
+                 f"run launched {got[name]} and its captures' warm-ups {warmup.get(name, 0)}")
+    out["profile_eval"] = {"trace": seen, "launches": got, "warmup": warmup,
+                           "annotations": notes, "trace_mib": mib}
+
+    # (c) --debug_nans: the clean corpus, then one planted NaN
+    f32 = ["--compute_dtype", "float32", "--train.log_every_steps", "1", "--stage", "joint",
+           "--epochs", "1"]
+    walls = {}
+    for name, extra in (("plain", []), ("debug", ["--debug_nans"])):
+        _, walls[name] = counted_cli(f"host train f32 [{name}]", cli_train.main,
+                                     base + f32 + ["--checkpoint_dir",
+                                                   os.path.join(root, f"ck_{name}")] + extra,
+                                     counts, ("xent_fwd", "xent_bwd"))
+    want, got = (train_losses(os.path.join(root, f"ck_{n}", "joint")) for n in ("plain", "debug"))
+    if len(got) != len(want) or any(g.keys() != w.keys() for g, w in zip(got, want)):
+        fail("host train --debug_nans: the log differs in shape from the run's without")
+    worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for g, w in zip(got, want) for k in w
+                if isinstance(w[k], float))
+    if worst > 1e-6 or dispatch.nan_checks_enabled() or torch.is_anomaly_enabled():
+        fail(f"host train --debug_nans: logged values within rel {worst} of the run's without "
+             f"(1e-6), or the checks were left on")
+    print(f"host train --debug_nans [f32, joint, 1 epoch, {CARD}]: every logged value within rel "
+          f"{worst:.3g} of the run without; wall {walls['debug']:.2f} s against "
+          f"{walls['plain']:.2f} s; launches {json.dumps(counts['host train f32 [debug]'])}")
+    nan_data = os.path.join(root, "corpus_nan")
+    shutil.copytree(data, nan_data)
+    app_path = os.path.join(nan_data, "features", "app.npy")
+    app = np.load(app_path)
+    app[0, 0, 3] = np.nan  # video 0: the first train video (`write_cli_corpus`'s splits)
+    np.save(app_path, app)
+    nan_argv = ["--data_dir", nan_data, "--config", base[3], *f32]
+    try:
+        cli_train.main(nan_argv + ["--checkpoint_dir", os.path.join(root, "ck_nan_debug"),
+                                   "--debug_nans"])
+        fail("host train --debug_nans on the planted NaN: no FloatingPointError")
+    except FloatingPointError as e:
+        message = str(e)
+    if dispatch.nan_checks_enabled() or torch.is_anomaly_enabled():
+        fail("host train --debug_nans: the checks were left on after the error")
+    cli_train.main(nan_argv + ["--checkpoint_dir", os.path.join(root, "ck_nan")])
+    losses = [e["loss"] for e in train_losses(os.path.join(root, "ck_nan", "joint")) if "loss" in e]
+    print(f"host train on one planted NaN [video0, frame 0, {CARD}]: --debug_nans raised "
+          f"FloatingPointError: {message}; without the flag the run completes, losses {losses}")
+    out["debug_nans"] = {"clean_worst_rel": worst, "wall_s": walls, "nan_message": message,
+                         "nan_losses_without": losses}
+
+    # (d) the roofline shares of the calls the earlier phases timed
+    kind = torch.cuda.get_device_name(0)
+    m = cfg.model
+    rows = {
+        "beam-5": (roofline.beam_workload_cost(m, B, K, MAX_LEN, MAX_LEN), graph_rows["beam-5"]),
+        "greedy": (roofline.greedy_workload_cost(m, B, MAX_LEN, MAX_LEN), graph_rows["greedy"]),
+        "xe-step": (roofline.xe_step_cost(m, cfg.data.batch_size, cfg.data.caps_per_video_train,
+                                          MAX_LEN, MAX_LEN), None),
+    }
+    out["roofline"] = {}
+    for name, (cost, row) in rows.items():
+        times = ({"wall": xe_step_s} if row is None else
+                 {"wall": row["graphed"]["wall_ms"] / 1e3, "device": row["graphed"]["device_ms"] / 1e3})
+        shares = {k: roofline.utilization(cost, s, kind, "bfloat16") for k, s in times.items()}
+        steps = "28 steps" if row is None else f"chunks replayed {row['chunks'][0]} of {row['chunks'][1]}"
+        out["roofline"][name] = {"flops": cost.flops, "hbm_bytes": cost.hbm_bytes, **shares}
+        print(f"host roofline {name} [bf16, {CARD}; {steps}; the model counts every step]: "
+              f"{cost.flops / 1e9:.2f} GFLOP, {cost.hbm_bytes / 2 ** 20:.1f} MiB; " + "; ".join(
+                  f"on the {k} time {s * 1e3:.3f} ms: mfu {u['mfu']}, hbm_bw_util "
+                  f"{u['hbm_bw_util']}, bound {u['bound']}, headroom {u['headroom_x']}x"
+                  for (k, s), u in zip(times.items(), shares.values())))
+        for u in shares.values():
+            if u["mfu"] > ROOFLINE_MAX or u["hbm_bw_util"] > ROOFLINE_MAX:
+                fail(f"host roofline {name}: a share over {ROOFLINE_MAX}: {u}")
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = counts
+    return out
 
 
 def caption_fn(beam: bool, fused):
@@ -2579,7 +2938,9 @@ def study_phase(dev) -> dict:
     (bf16, the recipe's widths and epochs), `cli.eval --beam_size 5` on
     the test split; on the trained checkpoint the kernels against the
     plain path under f32 for beam 5 and greedy, free and under a template
-    (>= 98% of the test videos each); the early exit, graphed against
+    (>= 98% of the test videos each), and the beam-5 call through
+    `kernel_plain_diff` (f32: tokens equal, floats within F32_TOL); the
+    early exit, graphed against
     eager (tokens equal; wall, device ms, busy share, chunks replayed,
     caption length); the int8 projection (K7) against bf16 (printed);
     `tools.controllability_eval` with two templates and `cli.caption` of
@@ -2606,6 +2967,7 @@ def study_phase(dev) -> dict:
     from controllable_xgating_torch.ops.dispatch import set_decode_graphs
     from controllable_xgating_torch.ops.precision import precision
     from controllable_xgating_torch.tools import controllability_eval
+    from controllable_xgating_torch.utils.debug import kernel_plain_diff
     from controllable_xgating_torch.utils.config import load_config
     from controllable_xgating_torch.utils.profiling import call_device_ms
 
@@ -2710,6 +3072,25 @@ def study_phase(dev) -> dict:
     low = {k: v for k, v in agree.items() if v < AGREE_MIN}
     if low:
         fail(f"study: f32 caption agreement below {AGREE_MIN}: {low}")
+
+    # the beam-5 call through kernel_plain_diff (`utils/debug.py`): the
+    # kernels and the graphs against the plain eager path, f32
+    def beam_call(p):
+        with torch.inference_mode():
+            ctx, summary, _ = encode_for_inference(p, app, mot, mask,
+                                                   max_pos_len=cfg.model.max_pos_len,
+                                                   early_stop=True)
+            return beam_search(p.decoder, ctx, summary, K, steps, early_stop=True)
+
+    with precision("float32"):
+        try:
+            diffs = kernel_plain_diff(beam_call, restore_params(best, cfg, dev), **F32_TOL)
+        except AssertionError as e:
+            fail(f"study kernel_plain_diff beam-5 [f32, trained weights]: {e}")
+    out["kernel_plain_diff"] = diffs
+    print(f"study kernel_plain_diff beam-5 [f32, trained weights, {n_test} test videos, {CARD}]: "
+          f"tokens equal, largest difference per output {json.dumps(diffs)} (bound rtol "
+          f"{F32_TOL['rtol']}, atol {F32_TOL['atol']})")
 
     # 4. the early exit: graphed against eager, bf16, kernels on
     def run(fn, on: bool):
@@ -3282,7 +3663,7 @@ def main() -> None:
     # shape, then the train steps
     n_rows = cfg.data.batch_size * cfg.data.caps_per_video_train * (MAX_LEN - 1)
     xent = check_xent(dev, n_rows, VOCAB)
-    counts["xe-train"] = train_phase(cfg, dev)
+    counts["xe-train"], xe_step_s = train_phase(cfg, dev)
 
     # SCST: the reward tables and the reward at MSR-VTT's caption scale,
     # then both realizations' steps, the baseline through K3
@@ -3291,6 +3672,10 @@ def main() -> None:
     # the entry points users run: train, eval and caption through main(argv)
     set_compute_dtype("float32")  # each CLI picks bf16 and must leave this as it found it
     cli = cli_phase(dev, cfg)
+
+    # the native host runtime under the metrics and the df build,
+    # --profile, --debug_nans and the roofline shares of the timed calls
+    host = host_phase(dev, cfg, graph_rows, xe_step_s)
 
     # the serving path: the engine's buckets through the kernels, the
     # HTTP front end under load
@@ -3342,6 +3727,7 @@ def main() -> None:
     print("scst phase launches in its timed steps: " + json.dumps(scst))
     print("a9 phase (host clock /s; agreement): " + json.dumps(a9))
     print("cli phase (host clock, s and /s): " + json.dumps(cli))
+    print("host phase: " + json.dumps(host))
     print("graphs phase (graphed vs eager, bf16): " + json.dumps(graph_rows))
     print("serve phase: " + json.dumps(serve_rows, default=str))
     print("study phase: " + json.dumps(study))

@@ -32,9 +32,11 @@ from controllable_xgating_torch.cli.common import (
     base_parser,
     die,
     load_corpus,
+    note_no_trace,
     parse_with_overrides,
     restore_ensemble_params,
     restore_params,
+    runtime_scope,
 )
 from controllable_xgating_torch.data.vocab import pad_encode
 from controllable_xgating_torch.infer.beam import beam_search
@@ -43,7 +45,6 @@ from controllable_xgating_torch.infer.greedy import greedy_decode, sample_decode
 from controllable_xgating_torch.models.captioner import encode_for_inference
 from controllable_xgating_torch.models.decoder import DecodeContext
 from controllable_xgating_torch.ops.dispatch import fused_enabled
-from controllable_xgating_torch.ops.precision import precision
 
 
 def main(argv=None) -> None:
@@ -77,7 +78,8 @@ def main(argv=None) -> None:
         die("--ensemble supports deterministic decoding only (drop --sample)")
     cfg = adopt_run_config(args, cfg)
     device, dtype = apply_runtime_flags(args, cfg)
-    with precision(dtype):
+    note_no_trace(args, "cli.caption")
+    with runtime_scope(args, dtype):
         _caption(args, cfg, beam, device)
 
 

@@ -5,14 +5,18 @@ Counterpart of `controllable_xgating_tpu/cli/common.py`. `--device`
 takes `--platform`'s place: the CLIs run on the card unless the caller
 asks for the CPU, and without a CUDA device `--device cuda` exits with a
 message instead of carrying on on the CPU; `--compile_cache` is refused,
-as the port has no compile cache. The compute policy a CLI picks
-is scoped to its `main` (`ops/precision.py::precision`), so an in-process
-caller finds the policy as it left it.
+as the port has no compile cache. `--profile LOGDIR` writes a
+`torch.profiler` trace of `cli.eval`'s and `cli.train`'s work
+(`utils/profiling.py::profile_trace`); `--debug_nans` turns on
+`utils/debug.py`'s NaN checks before any model is built. The compute
+policy a CLI picks, and the NaN checks, are scoped to its `main`
+(`runtime_scope`), so an in-process caller finds both as it left them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -21,6 +25,7 @@ import torch
 from controllable_xgating_torch.data.corpus import CorpusInfo, load_labels
 from controllable_xgating_torch.data.features import FEATURES_DIR, FeatureStore
 from controllable_xgating_torch.models.captioner import CaptionerParams, init_captioner
+from controllable_xgating_torch.ops.precision import precision
 from controllable_xgating_torch.parallel.distributed import initialize_from_env, local_device
 from controllable_xgating_torch.train.state import (
     CheckpointManager,
@@ -28,6 +33,7 @@ from controllable_xgating_torch.train.state import (
     create_train_state,
 )
 from controllable_xgating_torch.utils.config import Config, load_config, parse_cli_overrides
+from controllable_xgating_torch.utils.debug import nan_checks
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -48,18 +54,22 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default=None, choices=("float32", "bfloat16"),
                    help="matmul operand dtype (accumulation is always f32); default "
                         "model.dtype on the card, float32 on the CPU")
-    # accepted so that they can be refused by name (see apply_runtime_flags)
+    # accepted so that it can be refused by name (see apply_runtime_flags)
     p.add_argument("--compile_cache", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--profile", default=None, metavar="LOGDIR", help=argparse.SUPPRESS)
-    p.add_argument("--debug_nans", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="write a torch.profiler trace (Chrome / TensorBoard) of eval's or "
+                        "train's work to LOGDIR")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first operator or kernel that makes a "
+                        "NaN (slow: every result is read back)")
     return p
 
 
 def apply_runtime_flags(args, cfg: Config) -> tuple[torch.device, str]:
     """(device, compute dtype) for this run: `--compute_dtype` when given,
     else `model.dtype` (bf16) on the card and float32 on the CPU, as the
-    JAX CLIs pick by backend. The caller runs under `precision(dtype)`.
-    Refuses what the port does not run yet. Where the environment names a
+    JAX CLIs pick by backend. The caller runs under `runtime_scope(args,
+    dtype)`. `--compile_cache` is refused. Where the environment names a
     process group (`parallel/distributed.py::initialize_from_env`: the
     CXG_* variables or torchrun's), the process joins it (NCCL on the
     card, gloo on the CPU) and its device is its own card,
@@ -67,15 +77,27 @@ def apply_runtime_flags(args, cfg: Config) -> tuple[torch.device, str]:
     if args.compile_cache is not None:
         die("--compile_cache has no counterpart in the port: it keeps no XLA compile cache "
             "(its kernels are built once per checkout, under build/kernels)")
-    if args.profile:
-        die("--profile is not ported yet (ROADMAP A10, measurement); "
-            "use python -m controllable_xgating_torch.utils.profiling")
-    if args.debug_nans:
-        die("--debug_nans is not ported yet (ROADMAP A10, measurement)")
     device, dtype = runtime_device(args.device, args.compute_dtype, cfg)
     if initialize_from_env(device.type):
         device = local_device(device.type)
     return device, dtype
+
+
+@contextlib.contextmanager
+def runtime_scope(args, dtype: str):
+    """The span of a CLI's work: its compute policy and, under
+    `--debug_nans`, the NaN checks (`utils/debug.py`), on before any model
+    is built; an in-process caller finds both as it left them."""
+    with precision(dtype), nan_checks(args.debug_nans):
+        yield
+
+
+def note_no_trace(args, cli: str) -> None:
+    """`--profile` on a CLI that writes no trace (as the JAX CLIs): said on
+    stderr, and the run goes on."""
+    if args.profile:
+        print(f"note: --profile: {cli} writes no trace (cli.eval and cli.train do)",
+              file=sys.stderr)
 
 
 def runtime_device(name: str, compute_dtype, cfg: Config) -> tuple[torch.device, str]:

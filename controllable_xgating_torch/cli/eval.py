@@ -14,6 +14,7 @@ config's device count never stops an eval).
   python -m controllable_xgating_torch.cli.eval ... --nbest 5 --oracle_metric CIDErD
   python -m controllable_xgating_torch.cli.eval ... --ensemble ck/joint ck/scst:best
   python -m controllable_xgating_torch.cli.eval ... --beam_size 6 --eval.diversity_groups 3
+  python -m controllable_xgating_torch.cli.eval ... --profile prof/   # + a torch.profiler trace
 
 An ensemble's result goes next to its first member, as
 `eval_<split>_ensemble.json`, and records the members under "ensemble".
@@ -36,6 +37,7 @@ from controllable_xgating_torch.cli.common import (
     parse_with_overrides,
     restore_ensemble_params,
     restore_params,
+    runtime_scope,
     split_ckpt_spec,
 )
 from controllable_xgating_torch.infer.beam import make_beam_caption_fn
@@ -45,8 +47,8 @@ from controllable_xgating_torch.infer.evaluator import (
     evaluate_split_nbest,
     make_greedy_caption_fn,
 )
-from controllable_xgating_torch.ops.precision import precision
 from controllable_xgating_torch.utils.logging import get_logger
+from controllable_xgating_torch.utils.profiling import profile_trace
 
 log = get_logger("cxg.cli.eval")
 
@@ -72,7 +74,7 @@ def main(argv=None) -> None:
     if args.nbest:
         beam = max(beam or 0, args.nbest, 2)
     device, dtype = apply_runtime_flags(args, cfg)
-    with precision(dtype):
+    with runtime_scope(args, dtype):
         _eval(args, cfg, beam, device)
 
 
@@ -118,19 +120,20 @@ def _eval(args, cfg, beam: int, device) -> None:
         else:
             caption_fn = make_greedy_caption_fn(cfg.model.max_pos_len, cfg.eval.max_decode_len,
                                                 block_unk=cfg.eval.block_unk)
-    if args.nbest:
-        metrics, oracle, lists = evaluate_split_nbest(
-            params, store, labels, info, caption_fn, args.nbest, split=args.split,
-            batch_size=cfg.data.batch_size, metrics=cfg.eval.metrics,
-            oracle_metric=args.oracle_metric, mesh=mesh,
-        )
-        captions = {v: [{"caption": c, "score": s} for c, s in l] for v, l in lists.items()}
-    else:
-        metrics, captions = evaluate_split(
-            params, store, labels, info, split=args.split, batch_size=cfg.data.batch_size,
-            max_len=cfg.eval.max_decode_len, max_pos_len=cfg.model.max_pos_len,
-            caption_fn=caption_fn, metrics=cfg.eval.metrics, mesh=mesh,
-        )
+    with profile_trace(args.profile):  # the decode and the scoring, as the JAX CLI's span
+        if args.nbest:
+            metrics, oracle, lists = evaluate_split_nbest(
+                params, store, labels, info, caption_fn, args.nbest, split=args.split,
+                batch_size=cfg.data.batch_size, metrics=cfg.eval.metrics,
+                oracle_metric=args.oracle_metric, mesh=mesh,
+            )
+            captions = {v: [{"caption": c, "score": s} for c, s in l] for v, l in lists.items()}
+        else:
+            metrics, captions = evaluate_split(
+                params, store, labels, info, split=args.split, batch_size=cfg.data.batch_size,
+                max_len=cfg.eval.max_decode_len, max_pos_len=cfg.model.max_pos_len,
+                caption_fn=caption_fn, metrics=cfg.eval.metrics, mesh=mesh,
+            )
     result = {"split": args.split, "beam_size": beam, "metrics": metrics}
     if args.nbest:
         result["nbest"] = args.nbest

@@ -4,8 +4,9 @@ of candidate captions against references with BLEU-1..4 / METEOR / ROUGE-L
 / CIDEr / CIDEr-D. Pure host code — no model, checkpoint, or accelerator.
 
 Counterpart of `controllable_xgating_tpu/cli/score.py`: the same input
-shapes, flags, bootstrap draws and JSON, on the port's pure-Python scorers
-(tests/test_torch_score_cli.py).
+shapes, flags, bootstrap draws and JSON, on the port's scorers (METEOR,
+ROUGE-L and the tokenizer in the native library where it is built;
+tests/test_torch_score_cli.py).
 
 Candidate JSON (--candidates) is accepted in any of these shapes:
 

@@ -35,11 +35,13 @@ from controllable_xgating_torch.cli.common import (
     base_parser,
     die,
     load_corpus,
+    note_no_trace,
     parse_with_overrides,
     restore_ensemble_params,
     restore_params,
 )
 from controllable_xgating_torch.ops.precision import precision
+from controllable_xgating_torch.utils.debug import enable_nan_checks
 
 
 def build_engine(args, cfg, info, device):
@@ -115,6 +117,7 @@ def start(argv=None):
     args, cfg = parse_with_overrides(p, argv)
     cfg = adopt_run_config(args, cfg)
     device, dtype = apply_runtime_flags(args, cfg)
+    note_no_trace(args, "cli.serve")
     if args.nbest:
         # validate HERE (the engine re-checks) so flag errors print the
         # CLI's uniform "error: ..." instead of a ValueError traceback
@@ -125,6 +128,11 @@ def start(argv=None):
                 f"{cfg.eval.beam_size}")
 
     info, _, store, cfg = load_corpus(args.data_dir, cfg)
+    if args.debug_nans:
+        # for the server's life: the kernels' outputs checked and the decode
+        # loops eager on the engine's threads, every operator on this one
+        # (the warm-up)
+        enable_nan_checks(True)
     with precision(dtype):
         engine = build_engine(args, cfg, info, device)
         if not args.no_warmup:

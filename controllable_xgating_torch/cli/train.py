@@ -29,6 +29,7 @@ alone evaluates, writes the checkpoints and `train_log.jsonl`.
   python -m controllable_xgating_torch.cli.train --data_dir D --stage scst \\
       --init_from checkpoints/caption
   python -m controllable_xgating_torch.cli.train --data_dir D --parallel.num_devices 4
+  python -m controllable_xgating_torch.cli.train ... --profile prof/ --debug_nans
 """
 
 from __future__ import annotations
@@ -48,9 +49,9 @@ from controllable_xgating_torch.cli.common import (
     parse_with_overrides,
     restore_or_init,
     restore_params,
+    runtime_scope,
 )
 from controllable_xgating_torch.data.loader import TrainBatchIterator
-from controllable_xgating_torch.ops.precision import precision
 from controllable_xgating_torch.parallel import distributed
 from controllable_xgating_torch.parallel.mesh import make_parallel_train_step
 from controllable_xgating_torch.train.loop import train_loop
@@ -62,6 +63,7 @@ from controllable_xgating_torch.train.state import (
 )
 from controllable_xgating_torch.train.xe import make_xe_train_step
 from controllable_xgating_torch.utils.logging import JsonlLogger, get_logger
+from controllable_xgating_torch.utils.profiling import profile_trace
 
 log = get_logger("cxg.cli.train")
 
@@ -90,7 +92,7 @@ def main(argv=None) -> None:
             die(f"data-parallel training failed: {e}")
         return
     try:
-        with precision(dtype):
+        with runtime_scope(args, dtype):
             _train(args, cfg, epochs, device)
     finally:
         distributed.shutdown()
@@ -162,14 +164,18 @@ def _train(args, cfg, epochs: int, device) -> None:
         loop = lambda state, step_fn, epochs, infos_extra: train_loop(
             state, step_fn, train_it, store, labels, info, cfg, epochs=epochs, ckpt=mgr,
             jsonl=jsonl, infos_extra=infos_extra)
+        # --profile traces the loops (with the switch's reward tables), as the JAX CLI's spans
         if args.stage in ("caption", "joint") and 0 <= switch < epochs:
             # XE for `switch` epochs, then SCST on the same state and optimizer
-            state, result_xe = loop(state, step_fn, switch, infos_extra)
-            log.info("switching to SCST at epoch %d", switch)
-            _, result = loop(state, scst_step(), epochs - switch, {**infos_extra, "stage": "scst"})
+            with profile_trace(args.profile):
+                state, result_xe = loop(state, step_fn, switch, infos_extra)
+                log.info("switching to SCST at epoch %d", switch)
+                _, result = loop(state, scst_step(), epochs - switch,
+                                 {**infos_extra, "stage": "scst"})
             result["best"] = max(result["best"], result_xe["best"])
         else:
-            _, result = loop(state, step_fn, epochs, infos_extra)
+            with profile_trace(args.profile):
+                _, result = loop(state, step_fn, epochs, infos_extra)
     if distributed.is_primary():
         log.info("done: best %s = %.4f", cfg.train.keep_best_metric, result["best"])
 

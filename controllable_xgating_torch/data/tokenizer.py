@@ -1,8 +1,11 @@
-"""Penn-Treebank tokenizer, pure Python.
+"""Penn-Treebank tokenizer.
 
-The port's own copy of the JAX package's module of the same name, without
-its dispatch to the native C++ library (the port imports nothing of that
-package); tests/test_torch_metrics.py holds the two equal.
+The port's own copy of the JAX package's module of the same name (the
+port imports nothing of that package): `tokenize` dispatches to the
+native C++ tokenizer (`utils/native.py`) where it is built, and
+`tokenize_python` is its golden reference and fallback;
+tests/test_torch_metrics.py and tests/test_torch_native.py hold them
+equal to the JAX package's.
 
 Rebuilds the vendored coco-caption PTBTokenizer (SURVEY.md §2 "PTBTokenizer"),
 which shells out to the Stanford CoreNLP jar — no JVM exists in this
@@ -101,7 +104,19 @@ class PTBTokenizer:
         return text.split()
 
     def tokenize(self, text: str) -> list[str]:
-        """coco-caption behavior: tokenize, lowercase, drop punctuation."""
+        """coco-caption behavior: tokenize, lowercase, drop punctuation.
+
+        Dispatches to the native C++ tokenizer (native/cxg_text.cpp) when
+        built; `tokenize_python` is its golden reference and fallback.
+        """
+        from controllable_xgating_torch.utils import native
+
+        fast = native.ptb_tokenize(text)
+        if fast is not None:
+            return fast
+        return self.tokenize_python(text)
+
+    def tokenize_python(self, text: str) -> list[str]:
         return [
             tok.lower()
             for tok in self.tokenize_raw(text)

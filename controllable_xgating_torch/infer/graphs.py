@@ -67,7 +67,11 @@ from typing import Callable, Optional
 
 import torch
 
-from controllable_xgating_torch.ops.dispatch import decode_graphs_setting, fused_enabled
+from controllable_xgating_torch.ops.dispatch import (
+    decode_graphs_setting,
+    fused_enabled,
+    nan_checks_enabled,
+)
 from controllable_xgating_torch.ops.precision import compute_dtype
 
 CHUNK = 4  # steps per captured graph
@@ -244,10 +248,14 @@ def resolve_mode(override, device: torch.device, needs_grad: bool) -> str:
     """"graphs", "eager" or "chunks" for a loop on `device`: the call's
     override, else `set_decode_graphs`'s setting, else auto (graphs for
     CUDA tensors unless autograd must record, the eager loop otherwise).
-    Forced graphs need CUDA tensors."""
+    Forced graphs need CUDA tensors. With the NaN checks on
+    (`utils/debug.py`) nothing is captured: a graph cannot stop at an
+    operation."""
     setting = decode_graphs_setting(override)
     if setting == "chunks":
         return "chunks"
+    if nan_checks_enabled():
+        return "eager"
     if setting is None:
         return "graphs" if device.type == "cuda" and not needs_grad else "eager"
     if not setting:
@@ -340,6 +348,12 @@ def _steps(loop: StepLoop, carry: dict, span) -> dict:
     return work
 
 
+# the kernel launches the captures' warm-ups made, by wrapper: real launches
+# on the device that the wrappers' counters leave out (a profile of a call
+# that captures sees them)
+WARMUP_LAUNCHES: collections.Counter = collections.Counter()
+
+
 def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
     """First sight of a key: static inputs and carry, a warm-up of chunk 0
     on a side stream of the loop's device (it builds the kernel library,
@@ -347,7 +361,7 @@ def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
     then every chunk captured on that stream into one pool (torch's
     default capture stream belongs to the device of the first capture in
     the process, so a second card needs its own); the launch counters end
-    as they began."""
+    as they began, the warm-up's launches added to WARMUP_LAUNCHES."""
     dev = loop.device
     entry = Entry(loop, spans)
     ledger = LaunchLedger()
@@ -361,6 +375,7 @@ def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
         with torch.cuda.stream(side):
             loop.done(_steps(loop, entry.carry, spans[0]))
         torch.cuda.current_stream(dev).wait_stream(side)
+        WARMUP_LAUNCHES.update(ledger.since(counts))
         copy_tree(entry.carry, loop.init())  # the warm-up stepped the carry
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # as each capture's entry does: the pool is what it adds

@@ -10,9 +10,10 @@ the device paths (samples or n-best rows); the selection is host text
 utility over small pools, one similarity per ordered pair of distinct
 candidates, since the corpus scorers aggregate several references by max
 (ROUGE-L) or a length-penalised mean (CIDEr-D), not the plain expectation.
-The similarities are the port's `metrics/rouge.py::RougeScorer` and
-`metrics/cider.py::CiderDScorer` at sentence level (the JAX package's
-native ROUGE computes the same LCS F-measure).
+The similarities are ROUGE-L through the native library where it is
+built (`utils/native.py`, as the JAX package), else
+`metrics/rouge.py::RougeScorer`, and `metrics/cider.py::CiderDScorer`, at
+sentence level.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ from controllable_xgating_torch.metrics.rouge import RougeScorer
 
 
 def _pair_sim_rouge(a: str, b: str, beta: float = 1.2) -> float:
+    from controllable_xgating_torch.utils import native
+
+    if native.available():
+        return float(native.rouge_l(a, [b], beta))
     return float(RougeScorer(beta).score_single([b], a))
 
 

@@ -1,7 +1,8 @@
 """Exact fast bootstrap of corpus caption metrics.
 
 The port's own copy of the JAX package's module of the same name, on the
-port's scorers (`metrics/{bleu,cider,rouge,meteor}.py`, pure Python);
+port's scorers (`metrics/{bleu,cider,rouge,meteor}.py`, METEOR and
+ROUGE-L on the native library where it is built);
 tests/test_torch_score_cli.py holds its intervals equal to the JAX
 package's and to the direct path's.
 

@@ -1,4 +1,5 @@
-"""METEOR (Banerjee & Lavie 2005; Denkowski & Lavie 2011/2014), pure Python.
+"""METEOR (Banerjee & Lavie 2005; Denkowski & Lavie 2011/2014): the
+pure-Python reference of the native C++ aligner (`utils/native.py`).
 
 Rebuilds coco-caption's METEOR component (SURVEY.md §2 "METEOR"), which
 shells out to meteor-1.5.jar over a subprocess pipe — impossible here (no
@@ -249,14 +250,26 @@ def _normalize_synonyms(synonyms) -> Optional[dict[str, frozenset]]:
     return build_synonym_table(synonyms)
 
 
+def _table_groups(table: Mapping[str, frozenset]) -> list[list[str]]:
+    """Invert word->ids back to sorted synset groups (native serialization)."""
+    inv: dict = {}
+    for w in sorted(table):
+        for gid in table[w]:
+            inv.setdefault(gid, []).append(w)
+    return [inv[g] for g in sorted(inv)]
+
+
 class MeteorScorer:
-    """Corpus METEOR through `meteor_single`, the pure-Python scorer.
+    """Uses the native C++ aligner (native/cxg_text.cpp, `utils/native.py`)
+    when available; `meteor_single` is the pure-Python golden reference
+    and fallback.
 
     `synonyms`: optional stage-3 synonym table — a file path (see
     load_synonym_table), a word->group-ids mapping, or an iterable of
     synset groups. Empty/None scores bit-identically to exact+stem."""
 
-    def __init__(self, synonyms=None):
+    def __init__(self, use_native: bool = True, synonyms=None):
+        self.use_native = use_native
         self.synonyms = _normalize_synonyms(synonyms)
 
     def score(
@@ -264,10 +277,25 @@ class MeteorScorer:
         gts: Mapping[str, Sequence[str]],
         res: Mapping[str, Sequence[str]],
     ) -> tuple[float, list[float]]:
-        per_key = []
-        for key in res:
-            if len(res[key]) != 1:
-                raise ValueError("exactly one candidate per key expected")
-            per_key.append(meteor_single(res[key][0], gts[key], synonyms=self.synonyms))
+        from controllable_xgating_torch.utils import native
+
+        use_native = self.use_native and native.available()
+        syn_handle = 0
+        if use_native and self.synonyms:
+            syn_handle = native.syn_table_new(_table_groups(self.synonyms))
+            if syn_handle < 0:  # the library went away: the Python path
+                use_native, syn_handle = False, 0
+        try:
+            per_key = []
+            for key in res:
+                if len(res[key]) != 1:
+                    raise ValueError("exactly one candidate per key expected")
+                if use_native:
+                    per_key.append(native.meteor(res[key][0], list(gts[key]), syn_handle))
+                else:
+                    per_key.append(meteor_single(res[key][0], gts[key], synonyms=self.synonyms))
+        finally:
+            if syn_handle:
+                native.syn_table_free(syn_handle)
         corpus = sum(per_key) / len(per_key) if per_key else 0.0
         return corpus, per_key

@@ -3,7 +3,9 @@
 Rebuilds coco-caption's `Rouge` scorer (SURVEY.md §2): per segment, LCS
 against each reference gives precision/recall; the *maximum* precision and
 maximum recall over the reference set feed an F-measure with beta = 1.2;
-the corpus score is the mean over segments.
+the corpus score is the mean over segments. `score` runs the native C++
+LCS (`utils/native.py`) where it is built; `score_single` is its golden
+reference and fallback.
 """
 
 from __future__ import annotations
@@ -47,10 +49,16 @@ class RougeScorer:
         gts: Mapping[str, Sequence[str]],
         res: Mapping[str, Sequence[str]],
     ) -> tuple[float, list[float]]:
+        from controllable_xgating_torch.utils import native
+
+        use_native = native.available()
         per_key = []
         for key in res:
             if len(res[key]) != 1:
                 raise ValueError("exactly one candidate per key expected")
-            per_key.append(self.score_single(gts[key], res[key][0]))
+            if use_native:
+                per_key.append(native.rouge_l(res[key][0], list(gts[key]), self.beta))
+            else:
+                per_key.append(self.score_single(gts[key], res[key][0]))
         corpus = sum(per_key) / len(per_key) if per_key else 0.0
         return corpus, per_key

@@ -15,18 +15,27 @@ and steps the eager loop for CPU tensors; False steps the eager loop on
 the card too, which is what the graphed loop is held against. The two
 switches are orthogonal: graphs capture the kernel path and the plain
 path alike.
+
+`set_nan_checks` is the flag `utils/debug.py::enable_nan_checks` sets:
+the kernel wrappers check their outputs, and the decode loops never
+capture a graph, while it is on.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-_STATE: dict[str, Optional[bool]] = {"fused": None, "graphs": None}  # None = auto
+_STATE: dict[str, Optional[bool]] = {"fused": None, "graphs": None, "nan_checks": False}
 
 
 def set_fused_kernels(on: Optional[bool]) -> None:
     """True/False force; None restores auto (kernel wrappers everywhere)."""
     _STATE["fused"] = on
+
+
+def fused_setting() -> Optional[bool]:
+    """The process-global kernel setting (None = auto)."""
+    return _STATE["fused"]
 
 
 def fused_enabled(override: Optional[bool] = None) -> bool:
@@ -47,3 +56,11 @@ def decode_graphs_setting(override: Optional[bool] = None) -> Optional[bool]:
     process-global one; None is auto (`infer/graphs.py::resolve_mode`
     decides from the device)."""
     return override if override is not None else _STATE["graphs"]
+
+
+def set_nan_checks(on: bool) -> None:
+    _STATE["nan_checks"] = bool(on)
+
+
+def nan_checks_enabled() -> bool:
+    return bool(_STATE["nan_checks"])

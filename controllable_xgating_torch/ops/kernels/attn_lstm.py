@@ -25,6 +25,7 @@ from controllable_xgating_torch.ops.attention import NEG_INF
 from controllable_xgating_torch.ops.kernels import build
 from controllable_xgating_torch.ops.lstm import lstm_cell_pre
 from controllable_xgating_torch.ops.precision import compute_dtype, mm
+from controllable_xgating_torch.utils.debug import nan_guard
 
 
 def attn_lstm_step_plain(decoder_params, token_emb, h, c, keys, enc_proj, psi_g,
@@ -144,6 +145,7 @@ def attn_lstm_weights(decoder_params) -> AttnLstmWeights:
     )
 
 
+@nan_guard("K3 attn_lstm")
 def attn_lstm_step_kernel(
     decoder_params,
     token_emb: torch.Tensor,  # [B, E] gathered word embedding

@@ -166,9 +166,15 @@ def launch(fn, device, *args) -> int:
     """`fn(*args, stream)` with `device` current and its current stream
     last (the error code): the kernels raise their shared memory limits
     on, and launch into, the current device, whichever card the caller
-    left current."""
+    left current. Under `torch.profiler` the call is a user annotation
+    named after the entry point (`cxg_xgate_chain_fwd`, ...): one per
+    wrapper launch, beside the device kernels it starts."""
     with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(fn.__name__):
+                return fn(*args, stream)
+        return fn(*args, stream)
 
 
 def raise_on_error(rc: int, kernel: str) -> None:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from controllable_xgating_torch.ops.kernels import build
+from controllable_xgating_torch.utils.debug import nan_guard
 
 _BN = 128  # the kernel's vocab tile
 
@@ -59,6 +60,7 @@ def x_operand(x: torch.Tensor) -> torch.Tensor:
     return xb
 
 
+@nan_guard("K7 int8_vocab")
 def int8_vocab_proj(
     x: torch.Tensor,      # [M, K]
     wq: torch.Tensor,     # [K, Vpad] int8

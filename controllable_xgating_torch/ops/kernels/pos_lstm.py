@@ -27,6 +27,7 @@ from controllable_xgating_torch.ops.kernels import build
 from controllable_xgating_torch.ops.kernels.attn_lstm import _permute_gates, _round_up, gate_perm
 from controllable_xgating_torch.ops.lstm import lstm_cell_pre
 from controllable_xgating_torch.ops.precision import compute_dtype, mm
+from controllable_xgating_torch.utils.debug import nan_guard
 
 
 def pos_lstm_step_plain(pos_params, token_emb, s_gates, h, c):
@@ -142,6 +143,7 @@ class PosLstmRollout:
         self.hb[0, :, :self.hd].copy_(h)
         self.cur = 0
 
+    @nan_guard("K2 pos_lstm")
     def step(self, c: torch.Tensor, tok: torch.Tensor, h: Optional[torch.Tensor] = None):
         """One step on the tags `tok` [B] (their embedding gathered here);
         c [B, H] f32. Returns (h', c') in f32. `h` is the state to step

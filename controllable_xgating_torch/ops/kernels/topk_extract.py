@@ -32,6 +32,7 @@ from controllable_xgating_torch.ops.kernels.topk_tail import (
     topk_tail_weights,
 )
 from controllable_xgating_torch.ops.precision import compute_dtype
+from controllable_xgating_torch.utils.debug import nan_guard
 
 CHUNK_COLS = 1024  # f32: vocab columns per block, 128 KB of f32 logits for 32 rows
 CHUNK_COLS_BF16 = 128  # bf16: one wgmma tile's columns a block
@@ -41,6 +42,7 @@ def logits_topk_extract_plain(h, w_out, b_out, k: int):
     return logits_topk_plain(h, w_out, b_out, k)
 
 
+@nan_guard("K6 topk_extract")
 def logits_topk_extract_kernel(
     h: torch.Tensor,      # [R, Hd] decoder hidden
     w_out: torch.Tensor,  # [Hd, V]

@@ -29,6 +29,7 @@ from controllable_xgating_torch.data.vocab import BOS, PAD, UNK
 from controllable_xgating_torch.ops.kernels import build
 from controllable_xgating_torch.ops.precision import compute_dtype, mm
 from controllable_xgating_torch.utils.logging import get_logger
+from controllable_xgating_torch.utils.debug import nan_guard
 
 NEG = -1e30
 CHUNK_COLS = 512  # vocab columns per block of the first kernel
@@ -143,6 +144,7 @@ def topk_tail_weights(w_out: torch.Tensor) -> torch.Tensor:
     return F.pad(w.t(), (0, padded_hd(hd) - hd)).contiguous()
 
 
+@nan_guard("K4 topk_tail")
 def logits_topk(
     h: torch.Tensor,      # [R, Hd] decoder hidden
     w_out: torch.Tensor,  # [Hd, V]

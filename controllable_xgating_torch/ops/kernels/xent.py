@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from controllable_xgating_torch.ops.kernels import build
+from controllable_xgating_torch.utils.debug import nan_guard
 
 _INT_MAX = 2**31 - 1
 
@@ -67,6 +68,7 @@ def xent_fwd_kernel(x: torch.Tensor, t: torch.Tensor):
     return lse, tgt, mean
 
 
+@nan_guard("K5 xent_bwd")
 def xent_bwd_kernel(x, t, lse, g_lse, g_tgt, g_mean) -> torch.Tensor:
     """One launch of the backward kernel: dx f32 [N, V]."""
     n, v = _check(x, t)
@@ -105,6 +107,7 @@ class _XentRowStats(torch.autograd.Function):
         return xent_bwd_kernel(x, t, lse, zero(g_lse), zero(g_tgt), zero(g_mean)), None
 
 
+@nan_guard("K5 xent_fwd")
 def xent_row_stats(x: torch.Tensor, t: torch.Tensor):
     """Per-row (logsumexp, x[target], mean) of 2-D f32 logits, with their
     gradient: the kernels for a CUDA tensor, the plain version for a CPU

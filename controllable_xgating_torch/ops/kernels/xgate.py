@@ -25,6 +25,7 @@ import torch
 from controllable_xgating_torch.ops.kernels import build
 from controllable_xgating_torch.ops.precision import compute_dtype, mm
 from controllable_xgating_torch.ops.xgate import XGateWeights
+from controllable_xgating_torch.utils.debug import nan_guard
 
 
 def xgate_fuse_plain(w: XGateWeights, x_app: torch.Tensor, x_motion: torch.Tensor) -> torch.Tensor:
@@ -71,6 +72,7 @@ def xgate_fits(da: int, dm: int, h: int) -> bool:
     return da % 8 == 0 and dm % 8 == 0 and h % 8 == 0
 
 
+@nan_guard("K1 xgate")
 def xgate_fuse_kernel(
     w: XGateWeights, x_app: torch.Tensor, x_motion: torch.Tensor,
     ops: XGateOperands | None = None,  # xgate_weights(w), else made here

@@ -32,22 +32,76 @@ device time; then the CUDA-event span of one call (from before its first
 launch to after its last, idle gaps included). The Chrome traces go to
 DIR.
 
-This module imports nothing at import time beyond torch; it runs only
+The library half, for any caller: `profile_trace(logdir)`, the
+`--profile LOGDIR` context of `cli.eval` and `cli.train` (counterpart of
+the JAX package's `jax.profiler` trace): a `torch.profiler` trace of the
+CPU, and of the card where there is one, written into LOGDIR as a
+Chrome / TensorBoard trace (`*.pt.trace.json`); the profiler keeps every
+event in memory until the span ends. `materialize` and `time_fn` time a
+call to its results' completion on the device.
+
+This module imports nothing at import time beyond torch; `main` runs only
 where `torch.cuda.is_available()`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
+from typing import Callable
 
+import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 B, T, K, MAX_LEN = 256, 26, 5, 28
 VOCAB, POS_VOCAB = 10000, 35
+
+
+@contextlib.contextmanager
+def profile_trace(logdir):
+    """`torch.profiler` trace of the enclosed span into `logdir` (CPU
+    activity, and CUDA where a card is present; TensorBoard's
+    `torch_tb_profiler` and chrome://tracing read it); a no-op when
+    `logdir` is falsy."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
+
+
+def materialize(tree) -> None:
+    """Wait for every tensor of a pytree: its card synchronised, its
+    values read to the host."""
+    for leaf in tree_flatten(tree)[0]:
+        if isinstance(leaf, torch.Tensor):
+            if leaf.is_cuda:
+                torch.cuda.synchronize(leaf.device)
+            leaf.detach().cpu()
+
+
+def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 5) -> dict:
+    """Time fn(*args) steady-state, each call to its results' completion.
+    Returns {mean_s, min_s, iters}."""
+    for _ in range(warmup):
+        materialize(fn(*args))
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        materialize(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return {"mean_s": float(np.mean(times)), "min_s": float(np.min(times)), "iters": iters}
 
 
 def profile_call(fn, args) -> tuple:

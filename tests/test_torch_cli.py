@@ -219,7 +219,7 @@ def test_eval_cli_matches_jax(fixture, jax_evals, case, tmp_path):
         assert written["captions"] == want["captions"]
 
 
-# --- device, policy and the flags the port does not run yet ---
+# --- device and policy ---
 
 
 def test_cli_scopes_the_compute_policy(fixture):
@@ -253,25 +253,138 @@ def test_cli_without_a_card_refuses_cuda(fixture, monkeypatch, capsys, main, tmp
     assert compute_dtype() == torch.float32
 
 
-DEFERRED = [
-    pytest.param("caption", ["--video", "video0", "--profile", "prof"], "A10", id="caption-profile"),
-    pytest.param("train", ["--debug_nans"], "A10", id="train-debug_nans"),
-]
+# --- --profile and --debug_nans ---
 
 
-@pytest.mark.parametrize("cli,args,names", DEFERRED)
-def test_cli_refuses_what_is_not_ported(fixture, capsys, tmp_path, cli, args, names):
-    """A flag of the JAX CLIs that belongs to a later ROADMAP item exits 1
-    with a message naming the item; none is silently ignored."""
+def trace_files(logdir) -> list:
+    return sorted(f for f in os.listdir(logdir) if f.endswith(".pt.trace.json"))
+
+
+def test_eval_cli_profile_writes_a_trace_and_keeps_the_metrics(fixture, jax_evals, tmp_path):
+    """`cli.eval --profile DIR` writes one `torch.profiler` trace of the
+    decode and the scoring (the JAX CLI's span) into DIR; its metrics and
+    captions are the run's without the flag, and the JAX CLI's."""
     data, _, tdir = fixture
-    main = {"caption": t_caption.main, "eval": t_eval.main, "train": t_train.main,
-            "serve": t_serve.main}[cli]
-    ck = str(tmp_path) if cli == "train" else tdir
-    with pytest.raises(SystemExit) as e:
-        main(["--data_dir", data, "--checkpoint_dir", ck, *args, *SMALL, *PORT_FLAGS])
-    assert e.value.code == 1
-    assert names in capsys.readouterr().err
+    runs = {}
+    for name, extra in (("plain", []), ("profiled", ["--profile", str(tmp_path / "prof")])):
+        out = str(tmp_path / f"{name}.json")
+        run_cli(t_eval.main, ["--data_dir", data, "--checkpoint_dir", tdir, "--beam_size", "3",
+                              "--out", out, *extra, *SMALL, *PORT_FLAGS])
+        with open(out) as f:
+            runs[name] = json.load(f)
+    (trace,) = trace_files(tmp_path / "prof")
+    with open(tmp_path / "prof" / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"aten::mm", "aten::topk"} & names, sorted(names)[:20]
+    assert runs["profiled"]["metrics"] == runs["plain"]["metrics"]
+    assert runs["profiled"]["captions"] == runs["plain"]["captions"]
+    assert runs["plain"]["captions"] == jax_evals["beam3"][1]["captions"]
+    close_metrics(runs["profiled"]["metrics"], jax_evals["beam3"][1]["metrics"])
     assert compute_dtype() == torch.float32
+
+
+def test_caption_cli_profile_runs_and_says_it_writes_no_trace(fixture, jax_captions, capsys,
+                                                              tmp_path):
+    """`cli.caption --profile DIR` runs as the JAX CLI does, which writes
+    no trace there; the port says so on stderr."""
+    data, _, tdir = fixture
+    got = json_lines(run_cli(t_caption.main, [
+        "--data_dir", data, "--checkpoint_dir", tdir, *CAPTION_CASES["one_id"],
+        "--profile", str(tmp_path / "prof"), *SMALL, *PORT_FLAGS]))
+    assert got == jax_captions["one_id"]
+    assert "cli.caption writes no trace" in capsys.readouterr().err
+    assert not (tmp_path / "prof").exists()
+
+
+def plant_nan(data: str, dest: str) -> str:
+    """A copy of the fixture corpus with one NaN in the appearance
+    features of the first train video, in both feature layouts."""
+    import shutil
+
+    import h5py
+
+    shutil.copytree(data, dest)
+    with open(os.path.join(dest, "info.json")) as f:
+        v = json.load(f)["splits"]["train"][0]
+    with h5py.File(os.path.join(dest, "features.h5"), "r+") as f:
+        app = f["app"][...]
+        app[v, 0, 3] = np.nan
+        f["app"][...] = app
+    path = os.path.join(dest, t_features.FEATURES_DIR, "app.npy")
+    app = np.load(path)
+    app[v, 0, 3] = np.nan
+    np.save(path, app)
+    return dest
+
+
+DEBUG_TRAIN = ["--stage", "joint", "--epochs", "2", *SMALL, "--train.log_every_steps", "1"]
+
+
+@pytest.fixture(scope="module")
+def debug_runs(fixture, tmp_path_factory):
+    """`cli.train` of the port on the clean fixture with and without
+    `--debug_nans`; on the NaN-planted copy, each package's CLI with the
+    flag (the error it raised, or None) and the port's without it."""
+    data, _, _ = fixture
+    root = str(tmp_path_factory.mktemp("debug_nans"))
+    nan = plant_nan(data, os.path.join(root, "nan_corpus"))
+    raised = {}
+
+    def run(name, main, corpus, flags):
+        try:
+            run_cli(main, ["--data_dir", corpus, "--checkpoint_dir", os.path.join(root, name),
+                           *DEBUG_TRAIN, *flags])
+            raised[name] = None
+        except FloatingPointError as e:
+            raised[name] = e
+
+    run("clean", t_train.main, data, PORT_FLAGS)
+    run("clean-debug", t_train.main, data, ["--debug_nans", *PORT_FLAGS])
+    run("nan", t_train.main, nan, PORT_FLAGS)
+    run("nan-debug", t_train.main, nan, ["--debug_nans", *PORT_FLAGS])
+    run("nan-debug-jax", j_train.main, nan, ["--debug_nans", *JAX_FLAGS])
+    return root, raised
+
+
+def test_train_cli_debug_nans_logs_the_losses_of_the_run_without(debug_runs):
+    """On the clean fixture the checks only read: every logged loss and
+    metric equals the run's without the flag (f32 rtol 1e-6), and the
+    checks are off again after the CLI returns."""
+    from controllable_xgating_torch.ops import dispatch
+
+    root, raised = debug_runs
+    assert raised["clean"] is None and raised["clean-debug"] is None
+    want, got = (read_train_log(os.path.join(root, n, "joint")) for n in ("clean", "clean-debug"))
+    assert len(got) == len(want) and any("loss" in e for e in want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w.keys() - {"ts"}:
+            assert g[k] == pytest.approx(w[k], rel=1e-6, abs=1e-12), k
+    assert not dispatch.nan_checks_enabled() and not torch.is_anomaly_enabled()
+    assert compute_dtype() == torch.float32
+
+
+@pytest.mark.parametrize("run", ["nan-debug", "nan", "nan-debug-jax"])
+def test_train_cli_on_a_planted_nan(debug_runs, run):
+    """One NaN in a train video's features. The port's `--debug_nans`
+    raises FloatingPointError naming the operator and the module that
+    made the first NaN (the encoder's fusion). Without the flag the run
+    completes and logs a NaN loss, as the reference does; so does the JAX
+    CLI under its own `--debug_nans`, whose donated train step escapes
+    `jax_debug_nans` (it logs the NaN loss at the same step)."""
+    root, raised = debug_runs
+    if run == "nan-debug":
+        assert raised[run] is not None
+        assert "models/encoder.py" in str(raised[run]) and "operator aten." in str(raised[run])
+        assert not os.path.exists(os.path.join(root, run, "joint", "last.pt"))
+        return
+    assert raised[run] is None
+    losses = [e["loss"] for e in read_train_log(os.path.join(root, run, "joint")) if "loss" in e]
+    assert losses and np.isnan(losses).any()
+    if run == "nan-debug-jax":
+        port_log = read_train_log(os.path.join(root, "nan", "joint"))
+        port = [e["loss"] for e in port_log if "loss" in e]
+        assert np.isnan(port).tolist() == np.isnan(losses).tolist()
 
 
 def http_json(url, payload=None):

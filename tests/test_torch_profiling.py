@@ -1,10 +1,14 @@
-"""`utils/profiling.py::kernel_launch_us` with a fake profiler, on the CPU.
+"""`utils/profiling.py` on the CPU: `kernel_launch_us` with a fake
+profiler, and `profile_trace`, `time_fn` and `materialize` (the
+counterparts of the JAX package's, `tests/test_aux.py`).
 
 The profiler may keep no event of a kernel that launched. The readout then
 retries the profile once, and reports the kernel as not measured (absent,
 or None for the sum) if it still has none: never 0.
 """
 
+import json
+import os
 from types import SimpleNamespace
 
 import pytest
@@ -80,3 +84,29 @@ def test_the_split_is_the_median_launch_times_launches_per_call(fake_profiler):
     kept += [[event(2.0), event(9.0), event(3.0), event(4.0)]] * 2
     assert profiling.kernel_device_split(launching, calls=2) == {"cxg::topk_chunk<5>": 4.0 * 2}
     assert profiling.kernel_device_us(launching, calls=2) == 8.0
+
+
+def test_time_fn_returns_stats():
+    x = torch.ones(64, 64)
+    stats = profiling.time_fn(lambda a: (a @ a).sum(), x, warmup=1, iters=3)
+    assert stats["iters"] == 3 and 0 < stats["min_s"] <= stats["mean_s"]
+
+
+def test_materialize_pytree():
+    profiling.materialize({"a": torch.ones(3), "b": [torch.zeros(2), 1.0], "c": None})
+
+
+def test_profile_trace_writes_one_trace_and_is_a_no_op_without_a_logdir(tmp_path):
+    with profiling.profile_trace(None):
+        torch.ones(2).sum()
+    with profiling.profile_trace(""):
+        torch.ones(2).sum()
+    assert list(tmp_path.iterdir()) == []
+    logdir = tmp_path / "prof"
+    with profiling.profile_trace(str(logdir)):
+        (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+    (trace,) = os.listdir(logdir)
+    assert trace.endswith(".pt.trace.json")
+    with open(logdir / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::mm" in names
