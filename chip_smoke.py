@@ -3,9 +3,10 @@
 graphs and as eager loops), quantized-decoding, ensemble and diverse-beam,
 XE-training and SCST paths, its command-line entry points, its serving
 path, its own corpus -> train -> eval -> controllability study, its
-data-parallel path and its host runtime and measurement surface (the
+data-parallel path, its host runtime and measurement surface (the
 native metric library, `--profile`, `--debug_nans`, the roofline
-shares) once on one NVIDIA GPU.
+shares), and config 5 (the 2x decoder on the joint corpus, prefetched
+training) and the C3D widths once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -190,6 +191,23 @@ Phases, each fatal on failure:
      batch, f32 agreement with the unsharded call >= 98%; (e) a mesh
      engine at buckets (2, 8): every served block equal to the offline
      call on it, with its launches;
+  13. config 5 at its own shape and the C3D widths (`config5_phase`, in
+     build/chip_smoke_config5): (a) K3 and K4 at decoder Hd 1024 (2 x
+     512), K7 at K 1024 and K1 at motion 4096 against their plain
+     versions under f32 and bf16, with ms, device us per launch and
+     bounds, and `lanes_fits(5, 1024)` with K4's shared memory; (b) the
+     XE step at config 5 (64 x 5, dropout 0.5, bf16, K5) fed by the train
+     loop's prefetch (depth 2) and without it, in turns (wall and device
+     ms, busy share), f32 losses of 5 steps equal bit for bit with and
+     without it, and 3 f32 steps as 2 gloo ranks against 1; (c) beam 5
+     and greedy over the 256 videos (K1 1, K2-K4 28: the lanes tail),
+     graphed tokens equal eager, f32 agreement >= 98%, captions/s,
+     device ms and roofline shares; (d) beam 5 at motion 4096 (K1 once a
+     call; under f32 K1 held inside the path >= 98%, the whole path's
+     agreement printed); (e) `make_joint_fixture_corpus`
+     at MSR-VTT width (600 + 300 videos), `cli.train --stage joint
+     --model.decoder_hidden_mult 2` for one epoch (the loss falls) and
+     `cli.eval --beam_size 5` (finite metrics, K1 once a batch);
 then print every kernel's device microseconds per launch ("not
 measured" where the profiler kept none of its events) beside its
 bound, one JSON line of kernel results (eight kernels, each with its
@@ -383,15 +401,21 @@ def kernel_cases(params, dev, r: int = B * K, b: int = B):
     ], (h_out, dec.w_out, dec.b_out)
 
 
-def check_kernels(params, dev, policy: str, tols: dict) -> dict:
+def check_kernels(params, dev, policy: str, tols: dict, names=None, device_us=None,
+                  tag: str = "") -> dict:
     """Kernel vs plain on the same inputs, within `tols[name]`, and the two
     top-K kernels against each other; returns {name: (max_abs_err, ms,
-    plain_ms)}."""
+    plain_ms)}. `names` picks cases (default: all); under bf16 each
+    kernel's device us per launch go into `device_us` (default DEVICE_US,
+    the main path's); `tag` is added to the printed shape."""
     import torch
 
     from controllable_xgating_torch.ops.kernels.topk_tail import logits_topk_plain
 
+    device_us = DEVICE_US if device_us is None else device_us
     cases, tail_inputs = kernel_cases(params, dev)
+    cases = [c for c in cases if names is None or c[0] in names]
+    policy = policy + tag
     rv, ri, _ = logits_topk_plain(*tail_inputs, K + 1)
     out, tails = {}, {}
     for name, kern, plain in cases:
@@ -420,16 +444,16 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
                 fail(f"{name} [{policy}]: max |kernel - plain| = {err:.3e} outside {tol}")
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         dev_us = ""
-        if policy == "bfloat16":
+        if policy.startswith("bfloat16"):
             split = kernel_device_split(kern)
-            DEVICE_US[name] = sum(split.values()) if split else None
-            dev_us = f"  device {fmt_us(DEVICE_US[name])} us per launch"
+            device_us[name] = sum(split.values()) if split else None
+            dev_us = f"  device {fmt_us(device_us[name])} us per launch"
             if len(split) > 1:  # a wrapper call of several kernels
                 dev_us += " (" + ", ".join(f"{n} {us:.2f}" for n, us in split.items()) + ")"
         print(f"kernel {name} [{policy}]: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms{dev_us}")
         out[name] = (err, ms, plain_ms)
-        if name == "topk_tail" and policy == "bfloat16":
+        if name == "topk_tail" and policy == "bfloat16":  # the main path's shape only
             # how close K4's mainloop gets to cuBLAS on the bare projection
             # (not K4's function: no bias, mask, top-K or lse; the logits go
             # to device memory)
@@ -437,6 +461,8 @@ def check_kernels(params, dev, policy: str, tols: dict) -> dict:
             print(f"kernel topk_tail [{policy}]: cuBLAS h.bfloat16() @ w_out.bfloat16() "
                   f"{list(h16.shape)} x {list(w16.shape)}: {cuda_ms(lambda: h16 @ w16):.4f} ms "
                   f"(a diagnostic, not K4's function)")
+    if not set(TOPK_KERNELS) <= set(tails):
+        return out
     # K6 (iterative extraction) against K4 (per-lane insertion) on the same
     # inputs: values and lse within the tolerance, ids equal on clear rows
     (ev, ei, el), (kv, ki, kl) = tails["topk_extract"], tails["topk_tail"]
@@ -3333,7 +3359,8 @@ def dp_rank_steps(cfg, policy: str, timed: int = 0, scst: bool = False) -> dict:
     return dryrun.train_steps(0, cfg, batches, "joint", "cuda", policy, refs, timed)
 
 
-def dp_pair(cfg, backend: str, counts: dict, ranks: int = 2, env=None) -> dict:
+def dp_pair(cfg, backend: str, counts: dict, ranks: int = 2, env=None,
+            policies=("float32", "bfloat16"), scst: bool = True, tag: str = "") -> dict:
     """(b) / (c): DP_STEPS XE steps as `ranks` ranks over `backend` (with
     `env` in their environment: (b) shows them the first card only)
     against one
@@ -3341,13 +3368,15 @@ def dp_pair(cfg, backend: str, counts: dict, ranks: int = 2, env=None) -> dict:
     rtol 1e-5 and parameters rtol 2e-4, atol 1e-5 (the JAX package's bar),
     each rank launching K5 once a step; under bf16 the same, printed, with
     5 timed steps (step ms, the all-reduce ms of the gradients' bytes);
-    then one SCST step: the greedy reward rtol 1e-4."""
+    then, with `scst`, one SCST step: the greedy reward rtol 1e-4. `tag`
+    names the configuration in the printed lines."""
     import numpy as np
 
     from controllable_xgating_torch.parallel import distributed
 
     out = {}
-    for policy in ("float32", "bfloat16"):
+    backend_tag = backend + tag
+    for policy in policies:
         timed = 5 if policy == "bfloat16" else 0
         one = dp_rank_steps(cfg, policy, timed)
         two = distributed.launch(dp_rank_steps, ranks, (cfg, policy, timed), device_type="cuda",
@@ -3361,11 +3390,11 @@ def dp_pair(cfg, backend: str, counts: dict, ranks: int = 2, env=None) -> dict:
         maxd = max(float(np.max(np.abs(r["params"][n] - one["params"][n]))) for r in two
                    for n in one["params"])
         for rank, r in enumerate(two):
-            counts[f"dp-train rank {rank} [{backend}, {policy}]"] = r["launches"]
+            counts[f"dp-train rank {rank} [{backend_tag}, {policy}]"] = r["launches"]
             if any(r["launches"][k] != steps for k in DP_TRAIN):
-                fail(f"dp [{backend}, {policy}]: rank {rank} launched K5 {r['launches']} in "
+                fail(f"dp [{backend_tag}, {policy}]: rank {rank} launched K5 {r['launches']} in "
                      f"{steps} steps")
-        line = (f"dp xe [{backend}, {policy}, {ranks} ranks on {[r['device'] for r in two]}, "
+        line = (f"dp xe [{backend_tag}, {policy}, {ranks} ranks on {[r['device'] for r in two]}, "
                 f"{steps} steps of 64 x 5, dropout {cfg.model.dropout}] vs 1 rank: max "
                 f"relative loss difference {loss_err:.3e}, max |param difference| {maxd:.3e}; "
                 f"K5 per rank {[{k: r['launches'][k] for k in DP_TRAIN} for r in two]}")
@@ -3388,6 +3417,8 @@ def dp_pair(cfg, backend: str, counts: dict, ranks: int = 2, env=None) -> dict:
                      f"{out['scaling']:.3f}x)")
         out[f"loss_err_{policy}"], out[f"param_err_{policy}"] = loss_err, maxd
         print(f"{line}; {CARD}")
+    if not scst:
+        return out
     one = dp_rank_steps(cfg, "float32", scst=True)["metrics"][0]
     two = [r["metrics"][0] for r in distributed.launch(
         dp_rank_steps, ranks, (cfg, "float32", 0, True), device_type="cuda", backend=backend,
@@ -3551,6 +3582,385 @@ def dp_phase(params, cfg, store, labels, info, dev) -> dict:
     return out
 
 
+# config 5 (BASELINE.json: a 2x hidden-dim decoder on the joint MSVD +
+# MSR-VTT corpus, data-parallel) and the C3D widths (configs/msvd_c3d.json)
+C5_OVERRIDES = {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB,
+                "model.decoder_hidden_mult": 2}
+C5_STEPS = 5
+C5_PAIRS, C5_WINDOW = 10, 3  # (b)'s timed windows: pairs in turns, steps in each
+C5_CLI = ["--compute_dtype", "bfloat16", "--model.decoder_hidden_mult", "2",
+          "--parallel.num_devices", "1", "--train.log_every_steps", "1",
+          "--eval.max_decode_len", "20"]
+
+
+def c5_int8(params, dev) -> dict:
+    """K7 at config 5's beam shape [1280, 1024] -> 10000 against its plain
+    version (F32_TOL: the same bf16 operands), timed, with its device us
+    and bound."""
+    import torch
+
+    from controllable_xgating_torch.experiments.int8_vocab_matmul import (
+        quantize_vocab_proj,
+        with_kernel_operand,
+    )
+    from controllable_xgating_torch.ops.kernels.int8_vocab import int8_vocab_plain, int8_vocab_proj
+
+    dec = params.decoder
+    q = with_kernel_operand(quantize_vocab_proj(dec.w_out, dec.b_out))
+    h = torch.tanh(torch.randn(B * K, dec.hidden_dim, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(14)))
+    kern = lambda: int8_vocab_proj(h, q.wq, q.scale, q.bias, q.n, q.wq_t)
+    plain = lambda: int8_vocab_plain(h, q.wq, q.scale, q.bias)[:, : q.n]
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not torch.isfinite(got).all() or not torch.allclose(got, ref, **F32_TOL):
+        fail(f"config5 int8_vocab [{B * K}x{dec.hidden_dim}]: max |kernel - plain| {err:.3e}")
+    row = {"max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+           "device_us": kernel_device_us(kern), "bound": int8_bound(B * K, dec.hidden_dim, VOCAB)}
+    print(f"config5 kernel int8_vocab [{B * K}x{dec.hidden_dim} -> {VOCAB}]: max_abs_err "
+          f"{err:.3e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  device "
+          f"{fmt_us(row['device_us'])} us per launch  bound {row['bound']}; {CARD}")
+    return row
+
+
+def c5_xe(cfg, dev) -> dict:
+    """(b) the XE step at config 5 (batch 64 x 5, dropout 0.5, bf16, K5
+    launched) fed by the train loop's prefetch (depth 2: `DevicePut`,
+    pinned memory and a side stream) and without it (host batches the
+    step copies), C5_PAIRS pairs of windows of C5_WINDOW steps in turns
+    (ABBA): wall ms per step (batch fetch included), each pair's
+    difference (prefetch - none) with their median and how many pairs
+    each side won, device ms per step and busy share from one profiled
+    window of C5_STEPS steps each, beside the host's batch assembly and
+    synchronous copy alone (what the prefetch can hide at most); then
+    under f32 at dropout 0 the losses of C5_STEPS steps, with and without
+    prefetch, must be equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.data.features import DevicePut, PrefetchIterator
+    from controllable_xgating_torch.data.loader import TrainBatchIterator
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.precision import set_compute_dtype
+    from controllable_xgating_torch.train.state import create_train_state, make_optimizer
+    from controllable_xgating_torch.train.xe import batch_to_device, make_xe_train_step
+    from controllable_xgating_torch.utils.profiling import device_time_ms
+    from torch.profiler import ProfilerActivity, profile
+
+    store, caps, pos, ncaps = make_train_corpus(cfg, seed=1)
+    bs, k = cfg.data.batch_size, cfg.data.caps_per_video_train
+    source = lambda: iter(TrainBatchIterator(store, caps, pos, ncaps, np.arange(TRAIN_VIDEOS),
+                                             bs, k, seed=0))
+
+    def fresh(c):
+        state = create_train_state(init_captioner(c, seed=0, device=dev), c)
+        return state, make_xe_train_step(make_optimizer(c, TRAIN_VIDEOS // bs, "joint"), c)
+
+    def batches(prefetch: bool):
+        src = source()
+        return PrefetchIterator(src, DevicePut(dev), depth=2) if prefetch else src
+
+    def window(step, state, it, n):
+        losses = []
+        for _ in range(n):
+            state, m = step(state, next(it))
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return losses
+
+    set_compute_dtype("bfloat16")
+    state, step = fresh(cfg)
+    out = {}
+    walls = {True: [], False: []}
+    kernels.reset_launch_counts()
+    for prefetch in (True, False, False, True) * (C5_PAIRS // 2):
+        it = batches(prefetch)
+        window(step, state, it, 1)  # warm-up: the thread's first batches
+        t = time.perf_counter()
+        window(step, state, it, C5_WINDOW)
+        walls[prefetch].append((time.perf_counter() - t) / C5_WINDOW * 1e3)
+        if prefetch:
+            it.close()
+    counts = kernels.launch_counts()
+    if any(counts[n] != 2 * C5_PAIRS * (1 + C5_WINDOW) for n in DP_TRAIN):
+        fail(f"config5 xe: K5 did not launch once a step: {counts}")
+    diffs = [a - b for a, b in zip(walls[True], walls[False])]  # adjacent windows
+    out["pairs"] = {"diff_ms": diffs, "median_diff_ms": float(np.median(diffs)),
+                    "prefetch_faster": sum(d < 0 for d in diffs),
+                    "prefetch_slower": sum(d > 0 for d in diffs)}
+    print(f"config5 xe [bfloat16] {C5_PAIRS} pairs of {C5_WINDOW}-step windows in turns, wall "
+          f"ms per step prefetch - none: {[round(d, 2) for d in diffs]}, median "
+          f"{out['pairs']['median_diff_ms']:.2f}; prefetch faster in "
+          f"{out['pairs']['prefetch_faster']}, slower in {out['pairs']['prefetch_slower']}; "
+          f"{CARD}")
+    # what the prefetch can take off a step at most: the host's batch
+    # assembly and its synchronous copy to the card
+    src, fetch = source(), []
+    for _ in range(5):
+        t = time.perf_counter()
+        batch_to_device(next(src), dev)
+        torch.cuda.synchronize()
+        fetch.append((time.perf_counter() - t) * 1e3)
+    out["fetch_ms"] = float(np.median(fetch))
+    for prefetch in (True, False):
+        it = batches(prefetch)
+        window(step, state, it, 1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the device's events only
+            window(step, state, it, C5_STEPS)
+        if prefetch:
+            it.close()
+        dev_ms = device_time_ms(prof.key_averages()) / C5_STEPS
+        name = "prefetch" if prefetch else "no_prefetch"
+        out[name] = {"wall_ms": walls[prefetch], "device_ms": dev_ms,
+                     "busy": dev_ms / float(np.median(walls[prefetch]))}
+        print(f"config5 xe [bfloat16, batch {bs} x {k}, dropout {cfg.model.dropout}, "
+              f"{'prefetch depth 2' if prefetch else 'no prefetch'}]: wall ms per step "
+              f"{[round(w, 2) for w in walls[prefetch]]} (in turns; median "
+              f"{float(np.median(walls[prefetch])):.2f}), device {dev_ms:.2f} ms per "
+              f"step (one profiled window), busy share {out[name]['busy']:.3f}; the host's "
+              f"batch assembly + synchronous copy {out['fetch_ms']:.2f} ms (median of 5); {CARD}")
+
+    set_compute_dtype("float32")
+    c0 = cfg.replace_flat({"model.dropout": 0.0})
+    losses = {}
+    for prefetch in (True, False):
+        state, step = fresh(c0)
+        it = batches(prefetch)
+        losses[prefetch] = [x.item() for x in window(step, state, it, C5_STEPS)]
+        if prefetch:
+            it.close()
+    print(f"config5 xe [float32, dropout 0, {C5_STEPS} steps]: losses with prefetch "
+          f"{losses[True]}, without {losses[False]}")
+    if losses[True] != losses[False]:
+        fail("config5 xe: f32 losses with and without prefetch differ")
+    set_compute_dtype("bfloat16")
+    out["launches"] = counts
+    return out
+
+
+def config5_phase(dev) -> dict:
+    """Config 5 at its own shape and the C3D widths on the card (`config5`
+    lines): (a) K3 and K4 at decoder Hd 1024, K7 at K 1024 (config 5) and
+    K1 at motion 4096 (C3D) against their plain versions at the paths'
+    shapes under f32 (F32_TOL) and bf16 (BF16_TOL; K7 F32_TOL), with their
+    ms, device us per launch and bounds, and `lanes_fits(5, 1024)` with
+    K4's shared memory; (b) `c5_xe`, then 3 XE steps as 2 gloo ranks on
+    the one card against 1 rank (f32, `dp_pair`); (c) beam 5 and greedy
+    over 256 seeded videos through `evaluate_split` (bf16): K1 1 and K2-K4
+    28 launches for beam 5 (K4: the lanes tail, not the grouped one),
+    graphed tokens equal to eager, f32 kernels-vs-plain agreement >= 98%,
+    captions/s, device ms and the roofline shares; (d) C3D: beam 5 over
+    256 videos at motion 4096, K1 once a call; under f32 K1 held inside
+    the path (>= 98%: its encoder under the plain decoder against the
+    plain path, and the kernel path against it with the plain encoder),
+    the whole path's agreement with the plain one printed; (e)
+    the user path in build/chip_smoke_config5: `make_joint_fixture_corpus`
+    at MSR-VTT width (600 + 300 videos), `cli.train --stage joint
+    --model.decoder_hidden_mult 2 --parallel.num_devices 1` for one epoch
+    (prefetched; the loss must fall), `cli.eval --beam_size 5` (finite
+    metrics; K1 once a batch, K2-K4 launched)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch.cli import eval as cli_eval
+    from controllable_xgating_torch.cli import train as cli_train
+    from controllable_xgating_torch.data.fixtures import make_joint_fixture_corpus
+    from controllable_xgating_torch.infer.beam import beam_search
+    from controllable_xgating_torch.infer.evaluator import evaluate_split
+    from controllable_xgating_torch.models.captioner import encode_for_inference, init_captioner
+    from controllable_xgating_torch.ops import kernels
+    from controllable_xgating_torch.ops.dispatch import set_decode_graphs
+    from controllable_xgating_torch.ops.kernels import topk_tail
+    from controllable_xgating_torch.ops.kernels.xgate import xgate_fits
+    from controllable_xgating_torch.ops.precision import precision, set_compute_dtype
+    from controllable_xgating_torch.utils import roofline
+    from controllable_xgating_torch.utils.config import load_config
+    from controllable_xgating_torch.utils.profiling import call_device_ms
+
+    t_phase = time.time()
+    cfg5 = load_config(os.path.join(HERE, "configs", "msrvtt.json"), C5_OVERRIDES)
+    c3d = load_config(os.path.join(HERE, "configs", "msvd_c3d.json"),
+                      {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB})
+    p5, pc = (init_captioner(c, seed=0, device=dev) for c in (cfg5, c3d))
+    hd = p5.decoder.hidden_dim
+    if hd != 1024 or pc.encoder.xgate.wm.shape[0] != 4096:
+        fail(f"config5: decoder Hd {hd}, C3D motion {pc.encoder.xgate.wm.shape[0]}")
+    out = {"kernels": {}}
+
+    # (a) the kernels at config 5's and C3D's shapes
+    with precision("bfloat16"):
+        fits = topk_tail.lanes_fits(K, hd)
+    smem = -(-topk_tail.padded_hd(hd) // topk_tail._TILE_K) * topk_tail._A_TILE \
+        + topk_tail._RING + 1024
+    print(f"config5 lanes_fits({K}, {hd}) [bfloat16]: {fits}; K4's chunk kernel takes {smem} of "
+          f"{topk_tail.SMEM_OPTIN} B of shared memory; xgate_fits(1536, 4096, 512): "
+          f"{xgate_fits(1536, 4096, 512)}")
+    if not fits:
+        fail(f"config5: beam {K} at Hd {hd} would take the grouped tail")
+    dev_us = {}
+    shapes = {"attn_lstm": (p5, f", Hd {hd}"), "topk_tail": (p5, f", Hd {hd}"),
+              "xgate": (pc, ", motion 4096")}
+    for policy, tols in (("float32", {n: F32_TOL for n in BF16_TOL}), ("bfloat16", BF16_TOL)):
+        set_compute_dtype(policy)
+        for name, (params, tag) in shapes.items():
+            err, ms, plain_ms = check_kernels(params, dev, policy, tols, names=(name,),
+                                              device_us=dev_us, tag=" config5" + tag)[name]
+            out["kernels"].setdefault(name, {})[policy] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    bounds = {**caption_bounds(p5), "xgate": caption_bounds(pc)["xgate"]}
+    for name in shapes:
+        out["kernels"][name].update(device_us=dev_us.get(name), bound=bounds[name])
+    out["kernels"]["int8_vocab"] = c5_int8(p5, dev)
+    set_compute_dtype("bfloat16")
+    print(f"config5 (a) kernels: {time.time() - t_phase:.1f} s into the phase")
+
+    # (b) the XE step with and without prefetch; two gloo ranks against one
+    out["xe"] = c5_xe(cfg5, dev)
+    counts = {}
+    out["dp"] = dp_pair(cfg5, "gloo", counts, env={"CUDA_VISIBLE_DEVICES": "0"},
+                        policies=("float32",), scst=False, tag=", config5 Hd 1024")
+    print(f"config5 (b) xe and dp: {time.time() - t_phase:.1f} s into the phase")
+
+    # (c) beam 5 and greedy at config 5 over 256 videos; (d) C3D beam 5
+    kind = torch.cuda.get_device_name(0)
+    for label, params, cfg in (("beam-5", p5, cfg5), ("greedy", p5, cfg5),
+                               ("c3d beam-5", pc, c3d)):
+        beam = "beam" in label
+        store, labels, info = make_corpus(cfg, seed=0)
+        kernels.reset_launch_counts()
+        metrics, caps = evaluate_split(
+            params, store, labels, info, split="test", batch_size=B, max_len=MAX_LEN,
+            max_pos_len=MAX_LEN, caption_fn=caption_fn(beam, None))
+        torch.cuda.synchronize()
+        got = counts[f"config5 {label}"] = kernels.launch_counts()
+        want = {"xgate": 1, "pos_lstm": MAX_LEN, "attn_lstm": MAX_LEN}
+        if beam:
+            want["topk_tail"] = MAX_LEN
+        print(f"config5 {label} launches {got}")
+        if any(got[n] != v for n, v in want.items()):
+            fail(f"config5 {label}: launches {got}, expected {want}")
+        if len(caps) != B or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"config5 {label}: {len(caps)} captions, metrics {metrics}")
+        app, mot = (torch.as_tensor(x, device=dev) for x in store.get_batch(np.arange(B)))
+        mask = torch.as_tensor(store.frame_mask(np.arange(B)), device=dev)
+        call = lambda fused: caption_fn(beam, fused)(params, app, mot, mask)[0]
+        row = {"launches": got}
+        if label != "c3d beam-5":
+            graphed = call(None)
+            set_decode_graphs(False)
+            try:
+                eager = call(None)
+            finally:
+                set_decode_graphs(None)
+            if not torch.equal(graphed, eager):
+                fail(f"config5 {label}: graphed tokens differ from the eager loop's")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                call(None)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+            wall = float(np.median(walls))
+            d = call_device_ms(lambda: call(None))
+            dms = d["profiler"] if d["kernels_seen"] else d["events"]
+            cost = (roofline.beam_workload_cost(cfg.model, B, K, MAX_LEN, MAX_LEN) if beam else
+                    roofline.greedy_workload_cost(cfg.model, B, MAX_LEN, MAX_LEN))
+            shares = {k: roofline.utilization(cost, sec, kind, "bfloat16")
+                      for k, sec in (("wall", wall), ("device", dms / 1e3))}
+            row.update(captions_s=B / wall, wall_ms=wall * 1e3, device_ms=dms,
+                       roofline={k: {"mfu": u["mfu"], "hbm_bw_util": u["hbm_bw_util"]}
+                                 for k, u in shares.items()})
+            print(f"config5 {label} [bfloat16, Hd {hd}, 256 videos]: graphed tokens equal the "
+                  f"eager loop's; {B / wall:.1f} captions/s (wall {wall * 1e3:.2f} ms, median of "
+                  f"3), device {dms:.2f} ms; roofline on the wall mfu {shares['wall']['mfu']}, "
+                  f"hbm_bw_util {shares['wall']['hbm_bw_util']}, on the device time mfu "
+                  f"{shares['device']['mfu']}, hbm_bw_util {shares['device']['hbm_bw_util']}; "
+                  f"{CARD}")
+        set_compute_dtype("float32")
+        kernels.reset_launch_counts()
+        a = call(None)
+        k1 = kernels.launch_counts()["xgate"]
+        b = call(False)
+        agree = (a == b).all(1).float().mean().item()
+        row["f32_agreement"] = agree
+        print(f"config5 {label} caption agreement kernels vs plain [float32]: {agree:.4f}; K1 "
+              f"launches in the kernels' call {k1}")
+        if label == "c3d beam-5":
+            # what the C3D widths change is K1's input (4096-d motion); the
+            # decoder is the main path's (Hd 512). K1 is held inside the
+            # path both ways: its encoder under the plain decoder against
+            # the plain path, and the kernel path against the same path
+            # with the plain encoder. The whole path against the plain one
+            # is printed: its flips are the decoder kernels' near-ties on
+            # random weights, whatever the encoder (PERF.md, Findings)
+            enc = {f: encode_for_inference(params, app, mot, mask, max_pos_len=MAX_LEN, fused=f)
+                   for f in (True, False)}
+            dec = lambda e, f: beam_search(params.decoder, enc[e][0], enc[e][1], K, MAX_LEN,
+                                           fused=f)[0]
+            pairs = {"K1 + plain decoder vs plain": (dec(True, False), dec(False, False)),
+                     "kernels vs kernels with the plain encoder": (dec(True, True), dec(False, True))}
+            row["k1_agreement"] = {n: (x == y).all(1).float().mean().item()
+                                   for n, (x, y) in pairs.items()}
+            print(f"config5 {label} [float32] K1 at motion 4096 in the caption path: "
+                  + json.dumps(row["k1_agreement"]))
+            agree = min(row["k1_agreement"].values())
+        set_compute_dtype("bfloat16")
+        if agree < AGREE_MIN or k1 != 1:
+            fail(f"config5 {label}: f32 agreement {agree:.4f} (< {AGREE_MIN}?), K1 {k1} (!= 1?)")
+        out[label] = row
+
+    print(f"config5 (c), (d) decode: {time.time() - t_phase:.1f} s into the phase")
+    # (e) the user path: the joint corpus, cli.train, cli.eval
+    root = os.path.join(HERE, "build", "chip_smoke_config5")
+    shutil.rmtree(root, ignore_errors=True)
+    data, ck = os.path.join(root, "corpus"), os.path.join(root, "ck")
+    t = time.perf_counter()
+    info = make_joint_fixture_corpus(data)
+    n = {k: len(v) for k, v in info.splits.items()}
+    print(f"config5 joint corpus (600 MSR-VTT-shaped + 300 MSVD-shaped videos, 26 frames, "
+          f"1536 + 1024): splits {n}, vocab {len(info.vocab)}, written in "
+          f"{time.perf_counter() - t:.1f} s")
+    base = ["--data_dir", data, "--config", os.path.join(HERE, "configs", "msrvtt.json"), *C5_CLI]
+    _, train_s = counted_cli("config5 train", cli_train.main,
+                        ["--checkpoint_dir", ck, "--stage", "joint", "--epochs", "1", *base],
+                        counts, CLI_CAPTION_KERNELS, ("topk_tail", *DP_TRAIN))
+    with open(os.path.join(ck, "joint", "train_log.jsonl")) as f:
+        losses = [e["loss"] for e in map(json.loads, f) if "loss" in e]
+    print(f"config5 train [joint, Hd {hd}, prefetch depth 2, bf16, {n['train']} videos]: "
+          f"{len(losses)} steps in {train_s:.1f} s over the whole command; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {CARD}")
+    if not (losses and math.isfinite(losses[-1]) and losses[-1] < losses[0]):
+        fail(f"config5 train: the loss did not fall: {losses}")
+    eval_json = os.path.join(root, "eval_test.json")
+    _, dt = counted_cli("config5 eval-beam-5", cli_eval.main,
+                        ["--checkpoint_dir", os.path.join(ck, "joint"), "--beam_size", "5",
+                         "--out", eval_json, *base], counts, (*CLI_CAPTION_KERNELS, "topk_tail"))
+    with open(eval_json) as f:
+        res = json.load(f)
+    calls = -(-n["test"] // cfg5.data.batch_size)
+    got = counts["config5 eval-beam-5"]
+    if (len(res["captions"]) != n["test"] or got["xgate"] != calls
+            or not all(math.isfinite(v) for v in res["metrics"].values())):
+        fail(f"config5 eval: {len(res['captions'])} captions, K1 {got['xgate']} in {calls} "
+             f"batches, metrics {res['metrics']}")
+    print(f"config5 eval [beam 5, {n['test']} test videos, {calls} batches, bf16]: "
+          f"{n['test'] / dt:.2f} captions/s over the whole command; metrics "
+          f"{json.dumps(res['metrics'])}; {CARD}")
+    out["cli"] = {"train_losses": losses, "train_s": train_s, "eval_s": dt,
+                  "eval_metrics": res["metrics"]}
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = counts
+    out["phase_s"] = time.time() - t_phase
+    print("config5 kernels: " + json.dumps(out["kernels"]))
+    print(f"config5 phase: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3689,6 +4099,10 @@ def main() -> None:
     # decode mesh's eval and serving
     dp = dp_phase(params, cfg, store, labels, info, dev)
 
+    # config 5 at its own shape (2x decoder, the joint corpus, two ranks)
+    # and the C3D widths
+    c5 = config5_phase(dev)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -3732,6 +4146,7 @@ def main() -> None:
     print("serve phase: " + json.dumps(serve_rows, default=str))
     print("study phase: " + json.dumps(study))
     print("dp phase: " + json.dumps(dp, default=str))
+    print("config5 phase: " + json.dumps(c5, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,10 @@ train as one run over all of them. Every rank takes its rows of each
 batch and the update is the one-device step's on the whole batch; rank 0
 alone evaluates, writes the checkpoints and `train_log.jsonl`.
 
+Batches are prefetched (`data.num_prefetch`, `train/loop.py`): a thread
+assembles the next ones and copies them to the card (pinned memory, a
+side stream) while the step runs.
+
   python -m controllable_xgating_torch.cli.train --data_dir D --stage pos
   python -m controllable_xgating_torch.cli.train --data_dir D --stage caption \\
       --init_from checkpoints/pos
@@ -51,6 +55,7 @@ from controllable_xgating_torch.cli.common import (
     restore_params,
     runtime_scope,
 )
+from controllable_xgating_torch.data.features import DevicePut
 from controllable_xgating_torch.data.loader import TrainBatchIterator
 from controllable_xgating_torch.parallel import distributed
 from controllable_xgating_torch.parallel.mesh import make_parallel_train_step
@@ -135,6 +140,11 @@ def _train(args, cfg, epochs: int, device) -> None:
         if infos:
             log.info("resuming from %s at step %d", ckpt_dir, int(state.step))
     finalize = lambda step: step
+    # the prefetch's put (JAX `cli/train.py:104`): the steps' arrays onto
+    # the parameters' device; under data parallelism this process's rows
+    # of each global batch (`:146`)
+    put = DevicePut(next(state.params.parameters()).device)
+    device_put_fn = put
     if torch.distributed.is_initialized():
         world = distributed.process_count()
         if cfg.parallel.num_devices not in (0, world):
@@ -150,6 +160,7 @@ def _train(args, cfg, epochs: int, device) -> None:
         if distributed.is_primary():
             log.info("data-parallel over %d devices on %d processes", world, world)
         finalize = make_parallel_train_step
+        device_put_fn = lambda b: put(distributed.shard_process_local_batch(b))
     tx = make_optimizer(cfg, spe, stage=args.stage)
     scst_step = lambda: finalize(make_scst_train_step(
         tx, cfg, build_scst_reward_tables(info, labels, device)))
@@ -161,9 +172,10 @@ def _train(args, cfg, epochs: int, device) -> None:
     log_path = os.path.join(ckpt_dir, "train_log.jsonl") if distributed.is_primary() else None
     with JsonlLogger(log_path, echo=False,
                      tensorboard_dir=args.tensorboard if log_path else None) as jsonl:
+        # both loops of the switch draw from one iterator, as in JAX
         loop = lambda state, step_fn, epochs, infos_extra: train_loop(
             state, step_fn, train_it, store, labels, info, cfg, epochs=epochs, ckpt=mgr,
-            jsonl=jsonl, infos_extra=infos_extra)
+            jsonl=jsonl, infos_extra=infos_extra, device_put_fn=device_put_fn)
         # --profile traces the loops (with the switch's reward tables), as the JAX CLI's spans
         if args.stage in ("caption", "joint") and 0 <= switch < epochs:
             # XE for `switch` epochs, then SCST on the same state and optimizer

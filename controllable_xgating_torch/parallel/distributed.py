@@ -128,7 +128,11 @@ def process_slice(global_batch: int, group=None) -> slice:
 
 
 def shard_process_local_batch(batch: dict, group=None) -> dict:
-    """This process's rows of a host batch every process holds alike."""
+    """This process's rows of a host batch every process holds alike: the
+    train loop's put function under data parallelism, before
+    `data/features.py::DevicePut` copies the rows to this process's card
+    (JAX `shard_process_local_batch`, which lifts them into a global
+    array instead)."""
     n = next(len(v) for v in batch.values() if v is not None)
     sl = process_slice(n, group)
     return {k: None if v is None else v[sl] for k, v in batch.items()}

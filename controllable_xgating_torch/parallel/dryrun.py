@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from controllable_xgating_torch import bridge
+from controllable_xgating_torch.data.features import DevicePut, PrefetchIterator, put_now
 from controllable_xgating_torch.parallel import distributed
 from controllable_xgating_torch.parallel.mesh import make_parallel_train_step
 
@@ -35,10 +36,15 @@ def train_steps(params_tree: dict, cfg, batches: list, stage: str = "joint",
     = (reference caps [N, S, L], ncaps [N], train video indices), whose
     reward tables every process builds alike.
 
+    The batches go through the train loop's prefetch
+    (`data/features.py::PrefetchIterator` at `data.num_prefetch`, the
+    put `DevicePut` after, in a group, `shard_process_local_batch`).
+
     Returns {"metrics": [{name: float} per step], "params": {name: f32
     numpy}, "launches": the kernel wrappers' launches in those steps,
     "device": str}; with `timed` > 0 also "step_ms" (host clock of
-    `timed` more steps on the last batch, synchronised, per step),
+    `timed` more steps on the last batch, each put anew on the calling
+    thread, synchronised, per step: the put's copy is inside the span),
     "allreduce_ms" (one all-reduce of the gradients' flat buffer, median
     of 5, 0 without a group) and "grad_bytes"."""
     from controllable_xgating_torch.ops import kernels
@@ -67,21 +73,25 @@ def train_steps(params_tree: dict, cfg, batches: list, stage: str = "joint",
         caps, ncaps, train_idx = scst
         step = make_scst_train_step(tx, cfg, build_reward_tables(
             np.asarray(caps), np.asarray(ncaps), list(train_idx), device=dev))
+    put = DevicePut(dev)
+    put_fn = put
     if in_group:
         step = make_parallel_train_step(step)
+        put_fn = lambda b: put(distributed.shard_process_local_batch(b))
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     out: dict = {"metrics": [], "device": str(dev)}
     with precision(policy):
         kernels.reset_launch_counts()
-        for batch in batches:
-            _, m = step(state, batch)
-            out["metrics"].append({k: float(v) for k, v in m.items()})
+        with PrefetchIterator(iter(batches), put_fn, cfg.data.num_prefetch) as staged:
+            for batch in staged:
+                _, m = step(state, batch)
+                out["metrics"].append({k: float(v) for k, v in m.items()})
         sync()
         out["launches"] = kernels.launch_counts()
         if timed:
             t0 = time.perf_counter()
             for _ in range(timed):
-                step(state, batches[-1])
+                step(state, put_now(put_fn, batches[-1]))
             sync()
             out["step_ms"] = (time.perf_counter() - t0) / timed * 1e3
             n = sum(p.numel() for p in state.params.parameters())

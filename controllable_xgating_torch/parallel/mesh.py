@@ -13,10 +13,12 @@ the gradient all-reduce. The port keeps the two uses apart:
     name a device twice (`[cpu] * 4` in the CPU tests, `[cuda:0] * 2` on a
     one-card machine): its blocks then run in turn on that device;
   * training runs one process per device (`parallel/distributed.py`):
-    `make_parallel_train_step` feeds a step this process's rows of each
-    global batch and the process group, over which the step all-reduces
-    the non-PAD counts and the gradients itself (`train/xe.py`,
-    `train/scst.py`).
+    the train loop puts this process's rows of each global batch on its
+    device (`distributed.shard_process_local_batch`, then
+    `data/features.py::DevicePut`), and `make_parallel_train_step` feeds
+    them to a step with the process group, over which the step
+    all-reduces the non-PAD counts and the gradients itself
+    (`train/xe.py`, `train/scst.py`).
 """
 
 from __future__ import annotations
@@ -104,21 +106,22 @@ def replicate(params, mesh: Mesh) -> dict:
 
 
 def make_parallel_train_step(step: Callable, group=None) -> Callable:
-    """(state, global host batch) -> step(state, this process's rows,
+    """(state, this process's rows of a global batch) -> step(state, rows,
     group=group) (JAX `make_parallel_train_step`, `:61`).
 
-    `step` is one of `make_xe_train_step` / `make_scst_train_step`'s: given
-    a process group it computes the loss of the global batch, all-reducing
-    the non-PAD counts before the loss and the gradients (SUM) before the
-    global-norm clip and Adam, so every process applies the one-device
-    step's update. Every process passes the same host batch (the loaders
-    are deterministic). `group` None is the default group of
+    The rows come from `distributed.shard_process_local_batch`, the
+    train loop's put function (JAX `cli/train.py:146`; `train/loop.py`
+    prefetches them onto this process's card). `step` is one of
+    `make_xe_train_step` / `make_scst_train_step`'s: given a process group
+    it computes the loss of the global batch, all-reducing the non-PAD
+    counts before the loss and the gradients (SUM) before the global-norm
+    clip and Adam, so every process applies the one-device step's update.
+    Every process draws the same host batch (the loaders are
+    deterministic). `group` None is the default group of
     `torch.distributed`, which must be initialised."""
-    from controllable_xgating_torch.parallel import distributed
-
     group = group or torch.distributed.group.WORLD
 
-    def parallel_step(state, batch: dict):
-        return step(state, distributed.shard_process_local_batch(batch, group), group=group)
+    def parallel_step(state, rows: dict):
+        return step(state, rows, group=group)
 
     return parallel_step

@@ -225,6 +225,19 @@ def rank_train_runs(cases: list) -> list:
     return [dryrun.train_steps(**case) for case in cases]
 
 
+def rank_prefetch_rows(batches: list, depth: int) -> list:
+    """This rank's rows of each batch as the train loop prefetches them
+    under data parallelism (the put: `shard_process_local_batch`, then
+    `DevicePut` onto the CPU), as numpy."""
+    from controllable_xgating_torch.data.features import DevicePut, PrefetchIterator
+
+    put = DevicePut("cpu")
+    with PrefetchIterator(iter(batches), lambda b: put(distributed.shard_process_local_batch(b)),
+                          depth) as staged:
+        return [{k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in b.items()}
+                for b in staged]
+
+
 def rank_env(name: str):
     return os.environ.get(name)
 
