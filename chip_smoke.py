@@ -5,8 +5,9 @@ XE-training and SCST paths, its command-line entry points, its serving
 path, its own corpus -> train -> eval -> controllability study, its
 data-parallel path, its host runtime and measurement surface (the
 native metric library, `--profile`, `--debug_nans`, the roofline
-shares), and config 5 (the 2x decoder on the joint corpus, prefetched
-training) and the C3D widths once on one NVIDIA GPU.
+shares), config 5 (the 2x decoder on the joint corpus, prefetched
+training) and the C3D widths, and its ingest, checkpoint and study tools
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -208,6 +209,23 @@ Phases, each fatal on failure:
      at MSR-VTT width (600 + 300 videos), `cli.train --stage joint
      --model.decoder_hidden_mult 2` for one epoch (the loss falls) and
      `cli.eval --beam_size 5` (finite metrics, K1 once a batch);
+  14. the ingest, checkpoint and study tools (`tools_phase`, in
+     build/chip_smoke_tools, on the study phase's directory, which it
+     then removes): (a) `tools.dress_rehearsal` at its default scale
+     (10000 videos x 20 captions, MSR-VTT's splits, app 1536, motion
+     1024) as a process: the vocab threshold, each stage's seconds and
+     peak RSS, K5 once in each XE step and K1-K3 in the greedy val eval,
+     the per-step losses finite and falling; its XE step on the same
+     corpus in this process (wall, device ms, busy share); (b) the
+     study's `best` as a reference-style `.pth` through
+     `tools.import_torch_checkpoint`, and averaged with itself at
+     weights 1,3 by `tools.average_checkpoints`: parameters equal bit for
+     bit, `cli.eval --beam_size 5` on each gives the study's captions;
+     (c) `tools.ablation_grid` cells concat_pos and xgate_nopos on the
+     study corpus (flagship widths, epochs 1, 1, 1), each command's
+     launches pinned (K1 0 in concat_pos; K2 and K3 in every command; K4
+     in the beam-5 evals), finite metrics and controllability, then
+     `tools.ablation_report` and `tools.psi_diversity` (K2);
 then print every kernel's device microseconds per launch ("not
 measured" where the profiler kept none of its events) beside its
 bound, one JSON line of kernel results (eight kernels, each with its
@@ -2345,7 +2363,7 @@ def a9_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
 # offered rate over the 64-client closed loop's
 SERVE_BUCKETS = (1, 4, 16, 64)
 SERVE_PATH = ("xgate", "pos_lstm", "attn_lstm", "topk_tail")
-CLOSED_S, OPEN_S, DEADLINE_MS, OVERLOAD = 8.0, 8.0, 200.0, 1.5
+CLOSED_S, OPEN_S, DEADLINE_MS, OVERLOAD = 4.0, 4.0, 200.0, 1.5
 SLEEP_CYCLES = 600_000_000  # a device sleep of ~0.3 s at the H100's boost clock
 
 
@@ -2944,6 +2962,8 @@ STUDY_LR = {"pos": "1e-3", "caption": "2e-3"}
 STUDY_TEMPLATES = "EX VBZ DT NN VBG NN;DT NN VBZ NN"
 STUDY_TAGS = "DT NN VBZ VBG IN DT NN"
 STUDY_VIDEO = "video590"  # a test video of the 600
+# the study's corpus, checkpoints and beam-5 captions, kept for the tools phase
+STUDY_ROOT = os.path.join(HERE, "build", "chip_smoke_study")
 
 
 def caption_lengths(tokens) -> list:
@@ -2997,7 +3017,7 @@ def study_phase(dev) -> dict:
     from controllable_xgating_torch.utils.config import load_config
     from controllable_xgating_torch.utils.profiling import call_device_ms
 
-    root = os.path.join(HERE, "build", "chip_smoke_study")
+    root = STUDY_ROOT
     shutil.rmtree(root, ignore_errors=True)
     data, ck = os.path.join(root, "corpus"), os.path.join(root, "ck")
     counts, out = {}, {}
@@ -3226,8 +3246,7 @@ def study_phase(dev) -> dict:
     print(f"study score [--per_video --bootstrap 200, {n_test} videos, host, {dt:.2f} s]: "
           f"metrics {json.dumps(scored['metrics'])}; 95% intervals "
           f"{json.dumps(scored['bootstrap']['ci95'])}")
-    shutil.rmtree(root, ignore_errors=True)
-    out["launches"] = counts
+    out["launches"] = counts  # the directory stays for the tools phase, which removes it
     return out
 
 
@@ -3587,7 +3606,7 @@ def dp_phase(params, cfg, store, labels, info, dev) -> dict:
 C5_OVERRIDES = {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB,
                 "model.decoder_hidden_mult": 2}
 C5_STEPS = 5
-C5_PAIRS, C5_WINDOW = 10, 3  # (b)'s timed windows: pairs in turns, steps in each
+C5_PAIRS, C5_WINDOW = 4, 3  # (b)'s timed windows: pairs in turns, steps in each
 C5_CLI = ["--compute_dtype", "bfloat16", "--model.decoder_hidden_mult", "2",
           "--parallel.num_devices", "1", "--train.log_every_steps", "1",
           "--eval.max_decode_len", "20"]
@@ -3961,6 +3980,295 @@ def config5_phase(dev) -> dict:
     return out
 
 
+# the ingest, checkpoint and study tools (ROADMAP A4, A7), in a directory of
+# their own; the study phase's corpus, checkpoint and captions come along
+TOOLS_ROOT = os.path.join(HERE, "build", "chip_smoke_tools")
+REHEARSAL_BATCH = 256
+REHEARSAL_SPLITS = {"train": 6513, "val": 497, "test": 2990}  # the default 10000 x 20
+REHEARSAL_TIMEOUT_S = 900
+REHEARSAL_XE_STEPS = 5
+GRID_CELLS = ("concat_pos", "xgate_nopos")  # the cells no other phase trains
+GRID_EPOCHS = (1, 1, 1)  # pos, caption, SCST: the flagship recipe's (8, 40, 15), cut
+ALL_KERNELS = ("xgate", "pos_lstm", "attn_lstm", "topk_tail", "xent_fwd", "xent_bwd",
+               "int8_vocab", "topk_extract")
+
+
+def rehearsal_xe_step(data: str, dev) -> dict:
+    """The rehearsal's XE step (bf16, batch REHEARSAL_BATCH x 5 captions,
+    dropout 0.5, K5) on its own corpus, in this process, fed as the train
+    loop feeds it (`PrefetchIterator`, `DevicePut`): wall ms per step over
+    REHEARSAL_XE_STEPS steps after one, the device ms of one profiled
+    step and the busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from controllable_xgating_torch.cli.common import load_corpus
+    from controllable_xgating_torch.data.features import DevicePut, PrefetchIterator
+    from controllable_xgating_torch.data.loader import TrainBatchIterator
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.train.state import create_train_state, make_optimizer
+    from controllable_xgating_torch.train.xe import make_xe_train_step
+    from controllable_xgating_torch.utils.config import load_config
+    from controllable_xgating_torch.utils.profiling import device_time_ms
+
+    info, labels, store, cfg = load_corpus(data, load_config(None, {
+        "data.batch_size": REHEARSAL_BATCH}))
+    it = TrainBatchIterator(store, labels["caps"], labels["pos"], labels["ncaps"],
+                            np.asarray(info.splits["train"]), REHEARSAL_BATCH,
+                            cfg.data.caps_per_video_train, seed=0)
+    with precision("bfloat16"), PrefetchIterator(iter(it), DevicePut(dev), depth=2) as batches:
+        state = create_train_state(init_captioner(cfg, seed=0, device=dev), cfg)
+        step = make_xe_train_step(make_optimizer(cfg, it.steps_per_epoch(), "joint"), cfg)
+        state, _ = step(state, next(batches))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(REHEARSAL_XE_STEPS):
+            state, m = step(state, next(batches))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / REHEARSAL_XE_STEPS * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the device's events only
+            state, m = step(state, next(batches))
+            torch.cuda.synchronize()
+    dev_ms = device_time_ms(prof.key_averages())
+    return {"wall_ms": wall, "device_ms": dev_ms, "busy": dev_ms / wall,
+            "rows": REHEARSAL_BATCH * cfg.data.caps_per_video_train,
+            "vocab": cfg.model.vocab_size, "loss": m["loss"].item()}
+
+
+def grid_run(counts: dict, walls: dict):
+    """`tools/ablation_grid.py::run` in this process: each stage command's
+    module `main(argv)` through `counted_cli`, with the launches it must
+    make: K2 and K3 in every command (the psi-free cells' POS rollout too),
+    K1 only in an xgate cell, K4 in the beam-5 evals alone, no K5 (the
+    study corpus's 81 words are under its V >= 2048 gate)."""
+    import importlib
+
+    def run(cmd, log_path, retries=1, capture_stdout=False):
+        module, argv = cmd[2], cmd[3:]
+        cell = os.path.basename(os.path.dirname(log_path))
+        beam = module.endswith(".cli.eval")
+        if "--stage" in argv:
+            what = "train-" + argv[argv.index("--stage") + 1]
+        elif beam:
+            what = "eval-" + os.path.basename(argv[argv.index("--checkpoint_dir") + 1])
+        else:
+            what = module.rsplit(".", 1)[1]
+        xgate = cell.startswith("xgate")
+        want = ("pos_lstm", "attn_lstm") + (("xgate",) if xgate else ()) + (
+            ("topk_tail",) if beam else ())
+        absent = ("xent_fwd", "xent_bwd") + (() if xgate else ("xgate",)) + (
+            () if beam else ("topk_tail",))
+        label = f"tools grid {cell} {what}"
+        text, walls[label] = counted_cli(label, importlib.import_module(module).main, argv,
+                                         counts, want, absent)
+        return text if capture_stdout else None
+
+    return run
+
+
+def tools_phase(dev) -> dict:
+    """The ingest, checkpoint and study tools (`tools ...` lines, in
+    build/chip_smoke_tools): (a) `tools.dress_rehearsal` at its default
+    scale (10000 videos x 20 captions, splits 6513 / 497 / 2990, app 1536,
+    motion 1024, 26 frames; `--batch_size 256`) as a user runs it, in a
+    process of its own: the vocab threshold holds (the tool asserts it),
+    each stage's seconds and peak RSS, the XE epoch's launches (K5 once a
+    step, K1-K3 in the greedy val eval, no K4), its per-step losses finite
+    and falling, its epoch rate; then its XE step on the same corpus in
+    this process (wall, device ms, busy share); (b) the study phase's
+    trained `best` through `torch.save` as a reference-style `.pth` (one
+    entry transposed under its mapping) and `tools.import_torch_checkpoint`
+    into a `.pt` slot, and `tools.average_checkpoints` of that `best` with
+    itself at weights 1,3: both slots' parameters equal the source's and
+    `cli.eval --beam_size 5` on each gives the study's captions exactly;
+    (c) `tools.ablation_grid` on the study corpus at the flagship recipe's
+    widths, epochs cut to GRID_EPOCHS, cells GRID_CELLS, each stage
+    command in this process with its launches pinned (`grid_run`: K1 0 in
+    concat_pos), finite metrics and controllability in grid_results.json,
+    then `tools.ablation_report` and `tools.psi_diversity` (K2) on them."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from controllable_xgating_torch import bridge
+    from controllable_xgating_torch.cli import eval as cli_eval
+    from controllable_xgating_torch.cli.common import load_corpus, restore_params
+    from controllable_xgating_torch.tools import (
+        ablation_grid,
+        ablation_report,
+        average_checkpoints,
+        import_torch_checkpoint,
+        psi_diversity,
+    )
+    from controllable_xgating_torch.utils.config import load_config
+
+    t_phase = time.time()
+    root = TOOLS_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    counts, out = {}, {}
+
+    # (a) the full-scale rehearsal, in its own process (its peak RSS is its own)
+    reh = os.path.join(root, "rehearsal")
+    cmd = [sys.executable, "-m", "controllable_xgating_torch.tools.dress_rehearsal",
+           "--out", reh, "--batch_size", str(REHEARSAL_BATCH), "--train.log_every_steps", "1"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=REHEARSAL_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    if proc.returncode:
+        fail(f"tools rehearsal exited {proc.returncode}: {proc.stderr[-3000:]} "
+             f"{proc.stdout[-2000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    stages = {e["stage"]: e for e in lines if "stage" in e}
+    converted = next(e for e in lines if "captions" in e and "splits" in e)
+    if converted["captions"] != 200000 or converted["splits"] != REHEARSAL_SPLITS:
+        fail(f"tools rehearsal: converted {converted}")
+    steps = -(-REHEARSAL_SPLITS["train"] // REHEARSAL_BATCH)
+    got = counts["tools rehearsal xe"] = stages["xe_epoch_plus_eval"]["launches"]
+    print(f"tools rehearsal xe launches {got}")
+    if (got["xent_fwd"] != steps or got["xent_bwd"] != steps or got["topk_tail"]
+            or not all(got[n] for n in CLI_CAPTION_KERNELS)):
+        fail(f"tools rehearsal xe: K5 not once in each of {steps} steps, or K1-K3 not in the "
+             f"greedy val eval, or K4 launched: {got}")
+    with open(os.path.join(reh, "ck", "joint", "train_log.jsonl")) as f:
+        losses = [e["loss"] for e in map(json.loads, f) if "loss" in e]
+    if len(losses) != steps or not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        fail(f"tools rehearsal xe: losses of its {steps} steps {losses}")
+    rate = re.search(r"epoch 0 loss [0-9.]+ \(([0-9.]+) samples/s\)", proc.stdout)
+    epoch_step_ms = REHEARSAL_BATCH / float(rate.group(1)) * 1e3 if rate else None
+    xe_step = rehearsal_xe_step(reh, dev)
+    out["rehearsal"] = {"stages": list(stages.values()), "wall_s": wall, "losses": losses,
+                        "epoch_step_ms": epoch_step_ms, "xe_step": xe_step}
+    for e in stages.values():
+        print(f"tools rehearsal stage {json.dumps(e)}")
+    print(f"tools rehearsal [10000 videos x 20 captions, vocab {stages['TOTAL']['vocab_size']}, "
+          f"app 1536, motion 1024, 26 frames, batch {REHEARSAL_BATCH}, bf16, {CARD}]: "
+          f"{wall:.1f} s as a process; XE epoch of {steps} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, "
+          + (f"{epoch_step_ms:.2f} ms a step over the epoch (its log's samples/s); "
+             if epoch_step_ms else "no epoch rate in its log; ")
+          + f"the step in this process: wall {xe_step['wall_ms']:.2f} ms (mean of "
+          f"{REHEARSAL_XE_STEPS} after 1), device {xe_step['device_ms']:.2f} ms, busy "
+          f"{xe_step['busy']:.3f} ({xe_step['rows']} rows x vocab {xe_step['vocab']})")
+    shutil.rmtree(reh, ignore_errors=True)
+
+    # (b) the study's checkpoint through the importer and the averager
+    data = os.path.join(STUDY_ROOT, "corpus")
+    best = os.path.join(STUDY_ROOT, "ck", "caption")
+    with open(os.path.join(STUDY_ROOT, "eval_test.json")) as f:
+        study_eval = json.load(f)
+    pairs = list(zip(STUDY_COMMON[::2], STUDY_COMMON[1::2]))
+    model_flags = [a for k, v in pairs if k.startswith("--model.") for a in (k, v)]
+    cfg = load_config(None, {k[2:]: v for k, v in pairs if k.startswith("--model.")})
+    _, _, _, cfg = load_corpus(data, cfg)
+    source = restore_params(best, cfg, "cpu")
+    sd, mapping = {}, {}
+    flat = bridge.param_paths(source)
+    flip = next(n for n, a in flat if a.ndim == 2)
+    for n, a in flat:
+        key = "module." + n
+        sd[key] = torch.from_numpy(a.T.copy() if n == flip else a)
+        mapping[n] = {"key": key, "transform": "transpose"} if n == flip else key
+    pth, map_path = os.path.join(root, "model-best.pth"), os.path.join(root, "mapping.json")
+    torch.save({"state_dict": sd}, pth)
+    with open(map_path, "w") as f:
+        json.dump(mapping, f)
+    slots = {"imported": os.path.join(root, "imported"), "averaged": os.path.join(root, "averaged")}
+    _, dt_imp = counted_cli("tools import", import_torch_checkpoint.main,
+                            ["--data_dir", data, "--pth", pth, "--mapping", map_path,
+                             "--out", slots["imported"], *model_flags], counts, (), ALL_KERNELS)
+    _, dt_avg = counted_cli("tools average", average_checkpoints.main,
+                            ["--data_dir", data, "--inputs", best, f"{best}:best",
+                             "--weights", "1,3", "--out", slots["averaged"]], counts, (),
+                            ALL_KERNELS)
+    want = dict(source.named_parameters())
+    ckpts = {"import_s": dt_imp, "average_s": dt_avg}
+    for label, ck in slots.items():
+        got = dict(restore_params(ck, cfg, "cpu").named_parameters())
+        if got.keys() != want.keys() or not all(torch.equal(got[n], want[n]) for n in want):
+            fail(f"tools {label}: the parameters differ from the source's")
+        js = os.path.join(root, f"eval_{label}.json")
+        _, dt = counted_cli(f"tools eval-{label}", cli_eval.main,
+                            ["--data_dir", data, "--checkpoint_dir", ck, "--split", "test",
+                             "--beam_size", "5", "--out", js, *STUDY_COMMON], counts,
+                            (*CLI_CAPTION_KERNELS, "topk_tail"))
+        with open(js) as f:
+            res = json.load(f)
+        if res["captions"] != study_eval["captions"] or res["metrics"] != study_eval["metrics"]:
+            diff = sum(res["captions"].get(k) != v for k, v in study_eval["captions"].items())
+            fail(f"tools eval-{label}: {diff} captions differ from the study checkpoint's")
+        ckpts[f"eval_{label}_s"] = dt
+    out["checkpoints"] = ckpts
+    print(f"tools checkpoints [the study's best, {len(flat)} tensors, {flip!r} stored "
+          f"transposed; {CARD}]: imported ({dt_imp:.2f} s) and averaged with itself at weights "
+          f"1,3 ({dt_avg:.2f} s): parameters equal bit for bit; cli.eval beam 5 on each: "
+          f"{len(study_eval['captions'])} captions and metrics equal to the study's")
+
+    # (c) two cells of the ablation grid, each command in this process
+    grid_dir, walls = os.path.join(root, "grid"), {}
+    n_test = len(study_eval["captions"])
+    recipe, runner = ablation_grid.RECIPE, ablation_grid.run
+    ablation_grid.RECIPE = dict(ablation_grid.FLAGSHIP, epochs=GRID_EPOCHS)
+    ablation_grid.run = grid_run(counts, walls)
+    t = time.perf_counter()
+    try:
+        ablation_grid.main(["--data_dir", data, "--out", grid_dir, "--cells",
+                            ",".join(GRID_CELLS)])
+    finally:
+        ablation_grid.RECIPE, ablation_grid.run = recipe, runner
+    grid_s = time.perf_counter() - t
+    results_path = os.path.join(grid_dir, "grid_results.json")
+    with open(results_path) as f:
+        results = json.load(f)
+    names = [f"{c['fusion']}_{'pos' if c['pos_guidance'] else 'nopos'}" for c in results]
+    for c in results:
+        ctrl = c["controllability"]
+        if not (all(math.isfinite(v) for k in ("caption_metrics", "scst_metrics")
+                    for v in c[k].values())
+                and ctrl["videos"] == n_test
+                and all(0.0 <= ctrl[k] <= 1.0 for k in ("free_run_tag_agreement",
+                                                       "controlled_tag_agreement"))):
+            fail(f"tools grid: cell {c}")
+    if names != list(GRID_CELLS):
+        fail(f"tools grid: cells {names}")
+    report, _ = counted_cli("tools ablation_report", ablation_report.main,
+                            [results_path, "--data_dir", data, "--bootstrap", "200"], counts, (),
+                            ALL_KERNELS)
+    psi = {}
+    for cell in GRID_CELLS:
+        text, _ = counted_cli(f"tools psi_diversity {cell}", psi_diversity.main,
+                              ["--checkpoint_dir", os.path.join(grid_dir, cell, "scst"),
+                               "--data_dir", data], counts,
+                              ("pos_lstm",) + (("xgate",) if cell.startswith("xgate") else ()),
+                              ("attn_lstm", "topk_tail") + (
+                                  () if cell.startswith("xgate") else ("xgate",)))
+        psi[cell] = json.loads(text)
+        if psi[cell]["videos"] != min(128, n_test) or psi[cell]["distinct_tag_sequences"] < 1:
+            fail(f"tools psi_diversity {cell}: {psi[cell]}")
+    out["grid"] = {"wall_s": grid_s, "command_s": walls, "results": results,
+                   "psi": {c: {k: v for k, v in r.items() if k != "checkpoint"}
+                           for c, r in psi.items()}}
+    print(f"tools grid [{', '.join(GRID_CELLS)} on the study corpus, flagship widths, epochs "
+          f"{GRID_EPOCHS}, bf16, {CARD}]: {grid_s:.1f} s; per command "
+          f"{json.dumps({k: round(v, 2) for k, v in walls.items()})}")
+    print("tools ablation_report:\n" + report.strip())
+    print(f"tools psi_diversity (distinct free-run tag sequences of {min(128, n_test)} test "
+          f"videos): " + json.dumps({c: [r["distinct_tag_sequences"], r["top"][:2]]
+                                     for c, r in psi.items()}))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(STUDY_ROOT, ignore_errors=True)
+    out["launches"] = counts
+    out["phase_s"] = time.time() - t_phase
+    print(f"tools phase: {out['phase_s']:.1f} s; {CARD}")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4103,6 +4411,10 @@ def main() -> None:
     # and the C3D widths
     c5 = config5_phase(dev)
 
+    # the ingest, checkpoint and study tools: the full-scale rehearsal, the
+    # study's checkpoint imported and averaged, two cells of the grid
+    tools = tools_phase(dev)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -4147,6 +4459,7 @@ def main() -> None:
     print("study phase: " + json.dumps(study))
     print("dp phase: " + json.dumps(dp, default=str))
     print("config5 phase: " + json.dumps(c5, default=str))
+    print("tools phase: " + json.dumps(tools, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

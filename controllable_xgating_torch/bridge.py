@@ -9,8 +9,10 @@ nothing is transposed. The two static fields come from the config:
 `model.pos_guidance`; a tree without `encoder.lstm_bwd.*` keys gives a
 unidirectional encoder.
 
-The JAX side (flattening a pytree to numpy) lives with the tests, where
-jax is installed; this module needs only numpy and torch.
+`param_paths` lists the port's parameters in the JAX tree's order, so a
+tool prints them as the JAX tool does. The JAX side (flattening a pytree
+to numpy) lives with the tests and `convert_jax_checkpoint.py`, where jax
+is installed; this module needs only numpy and torch.
 """
 
 from __future__ import annotations
@@ -75,3 +77,27 @@ def to_numpy(params: CaptionerParams) -> dict:
         name: t.detach().to("cpu", torch.float32).numpy().copy()
         for name, t in params.named_parameters()
     }
+
+
+def _lstm_paths(prefix: str) -> list:
+    return [f"{prefix}.{n}" for n in _LSTM]
+
+
+# the JAX tree's leaf order: each dataclass's fields in declaration order,
+# where `named_parameters` lists a module's own tensors before its children
+JAX_ORDER = (
+    [f"encoder.xgate.{n}" for n in _XGATE] + _lstm_paths("encoder.lstm_fwd")
+    + _lstm_paths("encoder.lstm_bwd")
+    + [f"pos.{n}" for n in _POS[:3]] + _lstm_paths("pos.lstm") + [f"pos.{n}" for n in _POS[3:]]
+    + [f"decoder.{n}" for n in _DEC[:3]] + [f"decoder.attn.{n}" for n in ("wq", "wk", "b", "v")]
+    + [f"decoder.{n}" for n in _DEC[3:7]] + _lstm_paths("decoder.lstm")
+    + [f"decoder.{n}" for n in _DEC[7:]]
+)
+
+
+def param_paths(params: CaptionerParams) -> list:
+    """[(dotted path, f32 numpy array)] in the JAX tree's order, as
+    `tools/import_torch_checkpoint.py::param_paths` lists the JAX
+    package's parameters."""
+    tree = to_numpy(params)
+    return [(name, tree[name]) for name in JAX_ORDER if name in tree]
