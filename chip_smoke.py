@@ -6,8 +6,8 @@ path, its own corpus -> train -> eval -> controllability study, its
 data-parallel path, its host runtime and measurement surface (the
 native metric library, `--profile`, `--debug_nans`, the roofline
 shares), config 5 (the 2x decoder on the joint corpus, prefetched
-training) and the C3D widths, and its ingest, checkpoint and study tools
-once on one NVIDIA GPU.
+training) and the C3D widths, its ingest, checkpoint and study tools, and
+its measurement tools once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the root of a checkout
 
@@ -160,8 +160,9 @@ Phases, each fatal on failure:
   11. the port's own user path on a corpus it makes (`study_phase`, in
      build/chip_smoke_study): `cli.prepro --fixtures` with the flagship
      recipe's corpus (600 videos x 26 frames at MSR-VTT width, captions
-     of at most 20 tokens, 8 per video), `cli.train --stage pos` (8
-     epochs) then `--stage caption` from it (40 epochs) at the recipe's
+     of at most 20 tokens, 8 per video), `cli.train --stage pos` (4 of
+     the recipe's 8 epochs) then `--stage caption` from it (16 of its 40
+     epochs: the script's time limit) at the recipe's
      widths under bf16 (each stage's loss must fall; K1-K3 in the val
      evals, no K5: the corpus's 81 words are under its V >= 2048 gate),
      `cli.eval --beam_size 5` on the test split (K1-K4); on the trained
@@ -226,6 +227,13 @@ Phases, each fatal on failure:
      launches pinned (K1 0 in concat_pos; K2 and K3 in every command; K4
      in the beam-5 evals), finite metrics and controllability, then
      `tools.ablation_report` and `tools.psi_diversity` (K2);
+  15. the measurement tools (`breakdown_phase`, in
+     build/chip_smoke_breakdown), each through its `main` at MSR-VTT width
+     with loops of 2 and 4 repetitions: the timing harness not pruned,
+     each tool's launches pinned, the decode step and the loss against
+     their plain versions, the reward of one call against two, every
+     roofline share at most 1.05, the server at 100 and 800 requests/s,
+     a trace that ranks the port's kernels;
 then print every kernel's device microseconds per launch ("not
 measured" where the profiler kept none of its events) beside its
 bound, one JSON line of kernel results (eight kernels, each with its
@@ -1545,33 +1553,27 @@ def cli_phase(dev, cfg) -> dict:
 HOST_SYNONYM_PAIRS = 200  # synonym groups of two corpus words each, for METEOR's stage 3
 HOST_REL = 1e-9  # native vs Python metrics (tests/test_native_text.py's bar)
 ROOFLINE_MAX = 1.05  # a share above this means the cost model or the clock is wrong
-# per kernel wrapper: the device kernel a trace counts (bf16 policy) and
-# how many of its events one wrapper launch makes
-TRACE_KERNELS = {"xgate": ("xgate_chain_kernel", 3), "pos_lstm": ("pos_lstm_wgmma_kernel", 1),
-                 "attn_lstm": ("attn_rows_kernel", 1), "topk_tail": ("topk_merge_kernel", 1),
-                 "xent_fwd": ("xent_fwd_kernel", 1), "xent_bwd": ("xent_bwd_kernel", 1)}
 
 
 def trace_counts(logdir: str) -> tuple[dict, dict, float]:
-    """({wrapper: its kernel's device events / events per launch}, {entry
-    point: user annotations}, MiB) of the one `torch.profiler` trace in
-    `logdir`."""
+    """({wrapper: the launches its kernel's device events account for
+    (`profiling.kernel_event_launches`)}, {entry point: user annotations},
+    MiB) of the one `torch.profiler` trace in `logdir`."""
+    from controllable_xgating_torch.utils.profiling import kernel_event_launches
+
     files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
     if len(files) != 1:
         fail(f"--profile {logdir}: expected one trace, found {files}")
     path = os.path.join(logdir, files[0])
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    seen, notes = {}, {}
+    notes = {}
     for e in events:
         name = e.get("name", "")
-        if e.get("cat") == "kernel":
-            for wrapper, (kernel, per) in TRACE_KERNELS.items():
-                if f"cxg::{kernel}" in name:
-                    seen[wrapper] = seen.get(wrapper, 0) + 1 / per
-        elif e.get("cat") == "user_annotation" and name.startswith("cxg_"):
+        if e.get("cat") == "user_annotation" and name.startswith("cxg_"):
             notes[name] = notes.get(name, 0) + 1
-    return {k: round(v, 3) for k, v in seen.items()}, notes, os.path.getsize(path) / 2 ** 20
+    seen = kernel_event_launches(e.get("name", "") for e in events if e.get("cat") == "kernel")
+    return seen, notes, os.path.getsize(path) / 2 ** 20
 
 
 class python_metrics:
@@ -1762,7 +1764,7 @@ def host_phase(dev, cfg, graph_rows: dict, xe_step_s: float) -> dict:
     ncaps = np.full(SCST_VIDEOS, SCST_CAPS, np.int32)
     vids = list(range(SCST_DF_VIDEOS))
     built, walls = {}, {}
-    for name in ("native", "numpy", "native again", "numpy again"):
+    for name in ("native", "numpy"):
         t = time.perf_counter()
         built[name] = native.build_df(caps, ncaps, vids) if name.startswith("native") \
             else cd._df_table(caps, ncaps, vids)
@@ -2363,7 +2365,7 @@ def a9_phase(params, cfg, store, labels, info, dev, counts: dict) -> dict:
 # offered rate over the 64-client closed loop's
 SERVE_BUCKETS = (1, 4, 16, 64)
 SERVE_PATH = ("xgate", "pos_lstm", "attn_lstm", "topk_tail")
-CLOSED_S, OPEN_S, DEADLINE_MS, OVERLOAD = 4.0, 4.0, 200.0, 1.5
+CLOSED_S, OPEN_S, DEADLINE_MS, OVERLOAD = 3.0, 3.0, 200.0, 1.5
 SLEEP_CYCLES = 600_000_000  # a device sleep of ~0.3 s at the H100's boost clock
 
 
@@ -2957,7 +2959,8 @@ STUDY_COMMON = ["--compute_dtype", "bfloat16", "--model.hidden_dim", "512",
                 "--data.batch_size", "64", "--data.caps_per_video_train", "4",
                 "--train.lr_decay_every_epochs", "40", "--train.log_every_steps", "1",
                 "--eval.max_decode_len", "20"]
-STUDY_EPOCHS = {"pos": 8, "caption": 40}  # the recipe's
+STUDY_RECIPE = {"pos": 8, "caption": 40}  # the flagship recipe's epochs
+STUDY_EPOCHS = {"pos": 4, "caption": 16}  # cut for the script's time limit
 STUDY_LR = {"pos": "1e-3", "caption": "2e-3"}
 STUDY_TEMPLATES = "EX VBZ DT NN VBG NN;DT NN VBZ NN"
 STUDY_TAGS = "DT NN VBZ VBG IN DT NN"
@@ -3064,8 +3067,8 @@ def study_phase(dev) -> dict:
         if not (math.isfinite(last) and last < first):
             fail(f"study train --stage {stage}: the loss did not fall ({first} -> {last})")
         init = ["--init_from", os.path.join(ck, stage)]
-    if STUDY_EPOCHS["caption"] < 40:
-        print(f"study reduced: caption stage {STUDY_EPOCHS['caption']} of the recipe's 40 epochs")
+    print("study reduced: " + ", ".join(f"{stage} stage {STUDY_EPOCHS[stage]} of the recipe's "
+                                        f"{STUDY_RECIPE[stage]} epochs" for stage in STUDY_EPOCHS))
     best = os.path.join(ck, "caption")
 
     # 3. eval beam 5 on the test split through the CLI
@@ -3606,7 +3609,7 @@ def dp_phase(params, cfg, store, labels, info, dev) -> dict:
 C5_OVERRIDES = {"model.vocab_size": VOCAB, "model.pos_vocab_size": POS_VOCAB,
                 "model.decoder_hidden_mult": 2}
 C5_STEPS = 5
-C5_PAIRS, C5_WINDOW = 4, 3  # (b)'s timed windows: pairs in turns, steps in each
+C5_PAIRS, C5_WINDOW = 2, 3  # (b)'s timed windows: pairs in turns, steps in each
 C5_CLI = ["--compute_dtype", "bfloat16", "--model.decoder_hidden_mult", "2",
           "--parallel.num_devices", "1", "--train.log_every_steps", "1",
           "--eval.max_decode_len", "20"]
@@ -4269,6 +4272,236 @@ def tools_phase(dev) -> dict:
     return out
 
 
+BREAKDOWN_ROOT = os.path.join(HERE, "build", "chip_smoke_breakdown")
+BREAKDOWN_REPS = ["--reps", "2,4"]  # the tools' loop lengths, cut from 2,8 / 2,10 / 2,32
+SERVE_RATES = "100,800"  # the higher above the 404.7 requests/s of 64 closed-loop clients
+
+
+def run_tool(name: str, main, argv: list):
+    """A measurement tool's `main(argv)` in this process, its standard
+    output kept in BREAKDOWN_ROOT/<name>.txt; its return value."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    with open(os.path.join(BREAKDOWN_ROOT, f"{name}.txt"), "w") as f:
+        f.write(buf.getvalue())
+    print(f"breakdown {name}: {time.time() - t:.1f} s")
+    return ret
+
+
+def check_shares(label: str, row: dict) -> None:
+    """A report row's roofline shares: on its sustained ms each at most
+    ROOFLINE_MAX, on its device ms too wherever the profile kept an event
+    of every launch (else printed: a short count inflates the share)."""
+    on_dev = row.get("on_device") or {}
+    for key in ("mfu", "hbm_bw_util"):
+        if key in row and row[key] > ROOFLINE_MAX:
+            fail(f"breakdown {label}: {key} {row[key]} > {ROOFLINE_MAX} on its sustained ms")
+        if on_dev.get(key, 0) > ROOFLINE_MAX:
+            if row["events_complete"]:
+                fail(f"breakdown {label}: {key} {on_dev[key]} > {ROOFLINE_MAX} on its device ms")
+            print(f"breakdown {label}: {key} {on_dev[key]} on a device ms read from a short "
+                  f"event count {row['kernel_events']} for launches {row['launches']}")
+
+
+def want_launches(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        fail(f"breakdown {label}: launches {got}, expected {want}")
+
+
+def breakdown_phase(dev) -> dict:
+    """The measurement tools (`breakdown ...` lines, outputs in
+    build/chip_smoke_breakdown), each through its `main` in this process
+    at MSR-VTT width (app 1536, motion 1024, Hd 512, 26 frames, V 10000,
+    batch 256, bf16) with its loop lengths cut to BREAKDOWN_REPS:
+    (a) the harness is not pruned: beam-5's sustained ms a call is at
+    least 0.9 x its profiled device ms, and 10 calls take longer than 2;
+    (b) `cider_piece_timing`, the one-call rewards equal to the two-call
+    ones (atol 1e-6); (c) `beam_topk_ab`: K4 in lanes only; under f32 the
+    block, grouped and flat tails' tokens equal; (d) `ensemble_bench` at
+    M = 1, 2: K3 56 a call at M = 2, no K4; (e) `profile_beam_step`: K3
+    once a decode_fused repetition, none in decode_jnp, K3 and K4 28 each
+    in the beam call; decode_fused's (h, c) against decode_jnp's within
+    the attn_lstm bf16 bound; (f) `xe_breakdown`: K5 in the _KERNEL rows
+    alone; loss_lse_KERNEL against loss_lse rtol 1e-4 (f32 logits); (g)
+    `scst_breakdown`: K3 28 in greedy_rollout; (h) `serve_bench` at 100
+    and 800 offered requests/s for 2 s with 1000 ms deadlines: both
+    complete, p50 <= p99, nothing expired at 100; (i) `trace_ops
+    --workload beam` ranks the port's kernels, its kernel events printed
+    beside the ledger's launches. Every roofline share of (e) and (f)
+    (`check_shares`) at most ROOFLINE_MAX."""
+    import shutil
+
+    import torch
+
+    from controllable_xgating_torch.ops.cider_device import build_reward_tables
+    from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_step_plain
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.tools import (
+        beam_topk_ab,
+        cider_piece_timing,
+        ensemble_bench,
+        profile_beam_step,
+        scst_breakdown,
+        serve_bench,
+        trace_ops,
+        xe_breakdown,
+    )
+    from controllable_xgating_torch.train.xe import masked_xe_loss
+    from controllable_xgating_torch.utils import timing
+    from controllable_xgating_torch.utils.profiling import call_device_ms
+
+    t_phase = time.time()
+    shutil.rmtree(BREAKDOWN_ROOT, ignore_errors=True)
+    os.makedirs(BREAKDOWN_ROOT)
+    out: dict = {}
+    with precision("bfloat16"):
+        cfg, params = timing.build(device=dev)
+        # (a) the harness
+        fn = timing.make_fn(cfg)
+        app, mot = (timing.put(x, dev) for x in timing.random_batch(cfg, timing.BATCH))
+        times: dict = {}
+        per = timing.diff_time(timing.caption_loop(fn, params, app, mot), (2, 10), times=times)
+        d = call_device_ms(lambda: fn(params, app, mot))
+        out["harness"] = {"sustained_ms": round(per * 1e3, 3), "device_ms": round(d["profiler"], 3),
+                          "calls_2_ms": round(times[2] * 1e3, 3),
+                          "calls_10_ms": round(times[10] * 1e3, 3),
+                          "events_complete": d["events_complete"]}
+        print(f"breakdown harness [bfloat16, {CARD}]: beam-5 " + json.dumps(out["harness"]))
+        if not times[10] > times[2]:
+            fail(f"breakdown harness: 10 calls {times[10]} s not longer than 2 {times[2]} s")
+        if per * 1e3 < 0.9 * d["profiler"]:
+            fail(f"breakdown harness: sustained {per * 1e3:.3f} ms a call under 0.9 x its "
+                 f"device {d['profiler']:.3f} ms: the timed loop skips work")
+
+        # (e) the decode step: K3 against decode_step's plain path under f32,
+        # against its own plain version under bf16 (the plain path rounds the
+        # attention context to bf16 where K3 and its plain version do not)
+        err = {}
+        for policy in ("float32", "bfloat16"):
+            with precision(policy), torch.no_grad():
+                s = profile_beam_step.setup(cfg, params, timing.BATCH, dev)
+                dec, ctx_k = params.decoder, s["ctx_k"]
+                path, k3 = (profile_beam_step.decode_core(dec, ctx_k, s["tok"], s["h"], s["c"], f)
+                            for f in (False, True))
+                own = attn_lstm_step_plain(dec, dec.embed[s["tok"]], s["h"], s["c"], ctx_k.keys,
+                                           ctx_k.enc_proj, ctx_k.psi_g)[:2]
+            gap = lambda x, y: max((a - b).abs().max().item() for a, b in zip(x, y))
+            err[policy] = {"decode_fused_vs_jnp": gap(k3, path), "decode_fused_vs_own_plain":
+                           gap(k3, own), "jnp_vs_own_plain": gap(path, own)}
+            if policy == "float32" and not all(torch.allclose(a, b, **F32_TOL)
+                                               for a, b in zip(k3, path)):
+                fail(f"breakdown decode_fused vs decode_jnp [float32]: {err[policy]}")
+        if err["bfloat16"]["decode_fused_vs_own_plain"] > BF16_TOL["attn_lstm"]["atol"]:
+            fail(f"breakdown decode_fused vs its plain version [bfloat16]: {err['bfloat16']}")
+        print("breakdown decode step (h, c) max |d|: " + json.dumps(err))
+        out["decode_step_err"] = err
+
+        # (f) the loss, plain row statistics against K5, f32 logits
+        g = torch.Generator(device=dev).manual_seed(2)
+        rows = timing.BATCH * xe_breakdown.K
+        logits = torch.randn((rows, MAX_LEN - 1, VOCAB), generator=g, device=dev)
+        targets = torch.randint(4, VOCAB, (rows, MAX_LEN - 1), generator=g, device=dev)
+        losses = []
+        for kernels in (False, True):
+            with xe_breakdown.routed(kernels):
+                losses.append(masked_xe_loss(logits, targets).item())
+        if not math.isclose(losses[1], losses[0], rel_tol=1e-4):
+            fail(f"breakdown loss_lse_KERNEL {losses[1]} vs loss_lse {losses[0]}")
+        out["loss_lse"] = losses
+        del logits
+
+        # (b) the reward, one call of 2B against two of B
+        caps, ncaps, cand = cider_piece_timing.make_inputs(timing.BATCH)
+        tables = build_reward_tables(caps, ncaps, list(range(timing.BATCH)), device=dev)
+        cand, vidx = torch.as_tensor(cand, device=dev), torch.arange(timing.BATCH, device=dev)
+        two = torch.cat(cider_piece_timing.two_calls(tables, cand, vidx))
+        err = (cider_piece_timing.one_call(tables, cand, vidx) - two).abs().max().item()
+        if err > 1e-6:
+            fail(f"breakdown cider one_call_2B vs two_calls_B: max |d| {err}")
+
+        # (c) the full log-softmax tails under f32
+        with precision("float32"):
+            toks = {m: timing.make_fn(cfg, fused=False, topk_mode=m)(params, app, mot)[0]
+                    for m in ("block", "grouped", "flat")}
+        if not all(torch.equal(t, toks["flat"]) for t in toks.values()):
+            fail("breakdown f32 block / grouped / flat tails: tokens differ")
+        del params, s, tables, own, path, k3
+
+    cider = run_tool("cider_piece_timing", cider_piece_timing.main, BREAKDOWN_REPS)
+    out["cider_ms"] = cider["timings_ms"]
+    out["cider_device_ms"] = cider["device_ms"]
+
+    ab = run_tool("beam_topk_ab", beam_topk_ab.main, BREAKDOWN_REPS)
+    for mode, row in ab["forms"].items():
+        has_k4 = "topk_tail" in row["launches"]
+        if has_k4 != (mode == "lanes") or (has_k4 and row["launches"]["topk_tail"] != MAX_LEN):
+            fail(f"breakdown beam_topk_ab {mode}: launches {row['launches']}")
+    out["beam_topk_ab"] = {m: [r["captions_per_sec"], r["device_ms"]] for m, r in ab["forms"].items()}
+
+    ens = run_tool("ensemble_bench", ensemble_bench.main,
+                   BREAKDOWN_REPS + ["--members", "1,2", "--repeats", "1"])
+    m2 = ens["points"]["M=2"]["launches"]
+    if m2.get("attn_lstm") != 2 * MAX_LEN or "topk_tail" in m2:
+        fail(f"breakdown ensemble_bench M=2: launches {m2}")
+    out["ensemble"] = {k: [p["captions_per_sec"], p["device_ms"], p.get("per_member_vs_single")]
+                       for k, p in ens["points"].items()}
+
+    pb = run_tool("profile_beam_step", profile_beam_step.main, BREAKDOWN_REPS)["pieces"]
+    want_launches("decode_fused", pb["decode_fused"]["launches"], {"attn_lstm": 1})
+    want_launches("decode_jnp", pb["decode_jnp"]["launches"], {})
+    want_launches("full_beam_step", pb["full_beam_step(prod/28)"]["launches"],
+                  {"attn_lstm": MAX_LEN, "topk_tail": MAX_LEN})
+    for name, row in pb.items():
+        check_shares(f"profile_beam_step {name}", row)
+    out["profile_beam_step"] = {n: [r["us_per_step"], r["device_ms"]] for n, r in pb.items()}
+
+    xe = run_tool("xe_breakdown", xe_breakdown.main, BREAKDOWN_REPS)["pieces"]
+    for name, row in xe.items():
+        if "derived" in name:
+            continue
+        want_launches(f"xe_breakdown {name}", row["launches"], {} if "_KERNEL" not in name else
+                      {"xent_fwd": 1} if name.startswith("loss_lse") else
+                      {"xent_fwd": 1, "xent_bwd": 1})
+        check_shares(f"xe_breakdown {name}", row)
+    out["xe"] = {n: [r["ms"], r.get("device_ms")] for n, r in xe.items()}
+
+    sc = run_tool("scst_breakdown", scst_breakdown.main, BREAKDOWN_REPS)
+    want_launches("scst_breakdown greedy_rollout", sc["launches"]["greedy_rollout"],
+                  {"attn_lstm": MAX_LEN})
+    out["scst_ms"], out["scst_device_ms"] = sc["timings_ms"], sc["device_ms"]
+    out["scst_videos_per_sec"] = sc["videos_per_sec"]
+
+    points = run_tool("serve_bench", serve_bench.main,
+                      ["--rates", SERVE_RATES, "--duration", "2", "--deadline_ms", "1000"])
+    for p in points:
+        if p["n"] < 1 or p["latency_ms_p50"] > p["latency_ms_p99"]:
+            fail(f"breakdown serve_bench at {p['offered_rps']}/s: {p}")
+    if points[0]["expired"]:
+        fail(f"breakdown serve_bench: {points[0]['expired']} expired at {points[0]['offered_rps']}/s")
+    out["serve"] = [{k: p[k] for k in ("offered_rps", "achieved_rps", "n", "latency_ms_p50",
+                                       "latency_ms_p99", "mean_ride_bucket", "expired",
+                                       "late_completions")} for p in points]
+
+    tr = run_tool("trace_ops", trace_ops.main, ["--workload", "beam", "--reps", "2", "--out",
+                                                os.path.join(BREAKDOWN_ROOT, "trace_beam")])
+    ranked = [o["op"].split("(")[0] for o in tr["ops"] if "cxg::" in o["op"]]
+    if not ranked:
+        fail(f"breakdown trace_ops: no kernel of the port among {[o['op'] for o in tr['ops']]}")
+    out["trace_beam"] = {"total_device_us": tr["total_device_us"], "port_kernels": ranked[:6],
+                         "kernel_events": tr["port_kernel_events"], "launches": tr["launches"]}
+    print("breakdown trace_ops beam: kernel events " + json.dumps(tr["port_kernel_events"])
+          + " beside the ledger's launches " + json.dumps(tr["launches"]))
+    for label, rows in (("profile_beam_step", pb), ("xe_breakdown", xe)):
+        print(f"breakdown {label} [bfloat16, {CARD}]: " + json.dumps(rows))
+    out["seconds"] = round(time.time() - t_phase, 1)
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4415,6 +4648,10 @@ def main() -> None:
     # study's checkpoint imported and averaged, two cells of the grid
     tools = tools_phase(dev)
 
+    # the measurement tools: piece tables of the beam step, XE, SCST and the
+    # reward, ensembles, the server under open-loop load, a trace
+    breakdown = breakdown_phase(dev)
+
     banned = ("jax", "flax", "optax", "orbax", "h5py", "controllable_xgating_tpu", "experiments",
               "tools", "bench")
     pulled = sorted({m.split(".")[0] for m in sys.modules} & set(banned))
@@ -4460,6 +4697,7 @@ def main() -> None:
     print("dp phase: " + json.dumps(dp, default=str))
     print("config5 phase: " + json.dumps(c5, default=str))
     print("tools phase: " + json.dumps(tools, default=str))
+    print("breakdown phase: " + json.dumps(breakdown, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,38 +22,15 @@ import statistics
 import sys
 import time
 
-import numpy as np
 import torch
 
 from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
 from controllable_xgating_torch.infer.beam import beam_search
 from controllable_xgating_torch.infer.greedy import greedy_decode
-from controllable_xgating_torch.models.captioner import encode_for_inference, init_captioner
+from controllable_xgating_torch.models.captioner import encode_for_inference
 from controllable_xgating_torch.ops.dispatch import fused_enabled
 from controllable_xgating_torch.ops.precision import precision
-from controllable_xgating_torch.utils.config import Config
-
-BEAM = 5
-MAX_LEN = 28
-FRAMES = 26
-
-
-def build(cfg_overrides=None, device="cuda"):
-    """Default config at vocab 10000 and 35 POS tags, random weights from
-    seed 0, on `device`."""
-    cfg = Config().replace_flat({
-        "model.vocab_size": 10000,
-        "model.pos_vocab_size": 35,
-        **(cfg_overrides or {}),
-    })
-    return cfg, init_captioner(cfg, seed=0, device=device)
-
-
-def random_batch(cfg, batch, seed=0):
-    rng = np.random.default_rng(seed)
-    app = rng.normal(size=(batch, FRAMES, cfg.model.app_dim)).astype(np.float32)
-    mot = rng.normal(size=(batch, FRAMES, cfg.model.motion_dim)).astype(np.float32)
-    return app, mot
+from controllable_xgating_torch.utils.timing import BEAM, MAX_LEN, build, random_batch
 
 
 def make_fn(cfg, beam: bool, vocab_q=None):

@@ -132,6 +132,32 @@ def device_time_ms(key_averages) -> float:
     ) / 1e3
 
 
+# per kernel wrapper: a device kernel that each of its launches makes under
+# the bf16 policy, and how many events of that kernel one launch makes
+KERNEL_EVENTS = {"xgate": ("xgate_chain_kernel", 3), "pos_lstm": ("pos_lstm_wgmma_kernel", 1),
+                 "attn_lstm": ("attn_rows_kernel", 1), "topk_tail": ("topk_chunk_wgmma_kernel", 1),
+                 "xent_fwd": ("xent_fwd_kernel", 1), "xent_bwd": ("xent_bwd_kernel", 1),
+                 "int8_vocab": ("int8_vocab_kernel", 1),
+                 "topk_extract": ("topk_extract_wgmma_kernel", 1)}
+
+
+def kernel_event_launches(names) -> dict:
+    """{wrapper: launches} that the device kernel names `names` (one per
+    event) account for, by `KERNEL_EVENTS`."""
+    out: dict = {}
+    for name in names:
+        for wrapper, (kernel, per) in KERNEL_EVENTS.items():
+            if f"cxg::{kernel}" in name:
+                out[wrapper] = out.get(wrapper, 0) + 1 / per
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+# the runtime calls that each make one device event (a graph launch makes
+# many, and is not counted)
+API_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+             "cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync"}
+
+
 def call_device_ms(fn, args=()) -> dict:
     """One call of `fn(*args)` on the card, after a warm-up, read two ways:
     "profiler", the device time of the kernels, copies and sets in its
@@ -140,9 +166,18 @@ def call_device_ms(fn, args=()) -> dict:
     graph appear only where the profiler traces graph nodes); and
     "events", the span between CUDA events recorded on the current stream
     before and after the call, which also counts the time the card waited
-    for the host between launches."""
+    for the host between launches. Of the profiled call also: "launches",
+    the wrappers' counts by kernel; "kernel_events", the launches its
+    kernel events account for (`kernel_event_launches`); and
+    "events_complete", whether the profile kept a device event of every
+    kernel launch, copy and set its runtime calls made (`API_CALLS`) and
+    of every launch the wrappers counted (else the profiler's device
+    time reads short). A profile that is not complete is taken once
+    more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from controllable_xgating_torch.ops import kernels
 
     fn(*args)
     torch.cuda.synchronize()
@@ -152,12 +187,26 @@ def call_device_ms(fn, args=()) -> dict:
     end.record()
     torch.cuda.synchronize()
     events = start.elapsed_time(end)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
+    for _ in range(2):
+        before = kernels.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        launches = {n: c - before[n] for n, c in kernels.launch_counts().items()
+                    if c != before[n]}
+        ka = prof.key_averages()
+        device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        calls = sum(e.name in API_CALLS for e in prof.events())
+        kept = kernel_event_launches(device)
+        complete = len(device) >= max(calls, 1) and all(kept.get(n, 0) >= c
+                                                        for n, c in launches.items())
+        if complete:
+            break
     seen = sum(e.count for e in ka if e.device_type == DeviceType.CUDA and "cxg::" in e.key)
-    return {"profiler": device_time_ms(ka), "kernels_seen": seen, "events": events}
+    return {"profiler": device_time_ms(ka), "kernels_seen": seen, "events": events,
+            "launches": launches, "kernel_events": kept, "events_complete": complete,
+            "device_events": len(device), "api_calls": calls}
 
 
 def kernel_launch_us(fn, calls: int = 10) -> dict:
