@@ -635,6 +635,25 @@ def check_pos_ragged(dev) -> None:
               f"max_abs_err {err:.3e}")
 
 
+def chunk_counts(fn):
+    """fn() under a span collector: its output and, by kind of decode
+    loop, [chunks replayed, chunks its calls had]."""
+    from controllable_xgating_torch.utils import spans
+
+    with spans.collect() as col:
+        out = fn()
+    counters = col.summary()["counters"]
+    kinds = [k[len("graphs.replays."):] for k in counters if k.startswith("graphs.replays.")]
+    return out, {k: [counters[f"graphs.replays.{k}"], counters[f"graphs.chunks_of.{k}"]]
+                 for k in kinds}
+
+
+def replayed(chunks: dict) -> str:
+    """`chunk_counts`'s counts as text: "chunks replayed r of n" by loop."""
+    return "; ".join(f"{kind} chunks replayed {r} of {n}" for kind, (r, n) in chunks.items()) \
+        or "no chunks replayed"
+
+
 def port_kernels(fn) -> list:
     """The port's kernels (namespace cxg) that one call of fn launches,
     one name per kernel (a template's instantiations each), sorted
@@ -1862,7 +1881,7 @@ def host_phase(dev, cfg, graph_rows: dict, xe_step_s: float) -> dict:
         times = ({"wall": xe_step_s} if row is None else
                  {"wall": row["graphed"]["wall_ms"] / 1e3, "device": row["graphed"]["device_ms"] / 1e3})
         shares = {k: roofline.utilization(cost, s, kind, "bfloat16") for k, s in times.items()}
-        steps = "28 steps" if row is None else f"chunks replayed {row['chunks'][0]} of {row['chunks'][1]}"
+        steps = "28 steps" if row is None else replayed(row["chunks"])
         out["roofline"][name] = {"flops": cost.flops, "hbm_bytes": cost.hbm_bytes, **shares}
         print(f"host roofline {name} [bf16, {CARD}; {steps}; the model counts every step]: "
               f"{cost.flops / 1e9:.2f} GFLOP, {cost.hbm_bytes / 2 ** 20:.1f} MiB; " + "; ".join(
@@ -2048,7 +2067,8 @@ def graphs_phase(params, cfg, store, dev) -> dict:
         with precision(policy):
             for label, fn in fns().items():
                 graphs.clear()  # the keys cached next are this path's
-                eager, graphed = run(fn, False), run(fn, True)
+                eager = run(fn, False)
+                graphed, chunks = chunk_counts(lambda: run(fn, True))
                 for a, b in zip(graphed, eager):
                     ok = torch.allclose(a, b, rtol=1e-6, atol=0.0) if a.is_floating_point() \
                         else torch.equal(a, b)
@@ -2056,7 +2076,7 @@ def graphs_phase(params, cfg, store, dev) -> dict:
                         fail(f"graphs {label} [{policy}]: the graphed loop's outputs differ from "
                              f"the eager loop's")
                 print(f"graphs {label} [{policy}]: graphed outputs equal the eager loop's "
-                      f"(chunks replayed {graphs.LAST['chunks']} of {graphs.LAST['of']})")
+                      f"({replayed(chunks)})")
                 if policy == "float32":
                     continue
                 counts = []
@@ -2077,7 +2097,7 @@ def graphs_phase(params, cfg, store, dev) -> dict:
                         walls["graphed" if on else "eager"].append(
                             (time.perf_counter() - t) * 1e3)
                 row = {"launches": {n: c for n, c in counts[1].items() if c},
-                       "chunks": [graphs.LAST["chunks"], graphs.LAST["of"]],
+                       "chunks": chunks,
                        "keys": [{"kind": e["kind"], "capture_s": round(e["capture_s"], 3),
                                  "pool_mib": round(e["pool_bytes"] / 2 ** 20, 1)} for e in new]}
                 for name, on in (("graphed", True), ("eager", False)):
@@ -2098,7 +2118,7 @@ def graphs_phase(params, cfg, store, dev) -> dict:
                       f"{e['device_from']}); busy {g['busy']:.3f} vs {e['busy']:.3f}; "
                       f"{'rows' if label == 'pos-rollout' else 'captions'}/s "
                       f"{g['captions_s']:.1f} vs {e['captions_s']:.1f}; keys {row['keys']}; "
-                      f"chunks replayed {row['chunks'][0]} of {row['chunks'][1]}")
+                      f"{replayed(row['chunks'])}")
     return rows
 
 
@@ -3008,7 +3028,6 @@ def study_phase(dev) -> dict:
     from controllable_xgating_torch.cli.common import load_corpus, restore_params
     from controllable_xgating_torch.data.vocab import pad_encode
     from controllable_xgating_torch.experiments.int8_vocab_matmul import quantize_vocab_proj
-    from controllable_xgating_torch.infer import graphs
     from controllable_xgating_torch.infer.beam import beam_search
     from controllable_xgating_torch.infer.greedy import greedy_decode
     from controllable_xgating_torch.models.captioner import encode_for_inference
@@ -3156,10 +3175,10 @@ def study_phase(dev) -> dict:
         exits = {}
         for beam, name in ((True, "beam-5"), (False, "greedy")):
             fn = lambda: decode(params, beam, True)
-            eager, graphed = run(fn, False), run(fn, True)
+            eager = run(fn, False)
+            graphed, chunks = chunk_counts(lambda: run(fn, True))
             if not torch.equal(eager, graphed):
                 fail(f"study early exit {name}: graphed tokens differ from the eager loop's")
-            chunks = [graphs.LAST["chunks"], graphs.LAST["of"]]
             walls = {"graphed": [], "eager": []}
             for i in range(5):
                 for on in ((True, False) if i % 2 == 0 else (False, True)):
@@ -3182,8 +3201,8 @@ def study_phase(dev) -> dict:
                   f"{CARD}]: tokens equal graphed and eager; wall {g['wall_ms']:.2f} ms graphed "
                   f"vs {e['wall_ms']:.2f} eager (median of 5 in turns); device "
                   f"{g['device_ms']:.2f} vs {e['device_ms']:.2f} ms ({g['device_from']}); busy "
-                  f"{g['busy']:.3f} vs {e['busy']:.3f}; chunks replayed {chunks[0]} of "
-                  f"{chunks[1]}; words per caption mean {row['mean_words']:.2f}, "
+                  f"{g['busy']:.3f} vs {e['busy']:.3f}; {replayed(chunks)}; "
+                  f"words per caption mean {row['mean_words']:.2f}, "
                   f"max {row['max_words']}")
         out["early_exit"] = exits
 

@@ -41,6 +41,7 @@ from __future__ import annotations
 import importlib
 import os
 import sys
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -68,6 +69,7 @@ from controllable_xgating_torch.train.state import (
 )
 from controllable_xgating_torch.train.xe import make_xe_train_step
 from controllable_xgating_torch.utils.logging import JsonlLogger, get_logger
+from controllable_xgating_torch.utils import spans
 from controllable_xgating_torch.utils.profiling import profile_trace
 
 log = get_logger("cxg.cli.train")
@@ -176,17 +178,19 @@ def _train(args, cfg, epochs: int, device) -> None:
         loop = lambda state, step_fn, epochs, infos_extra: train_loop(
             state, step_fn, train_it, store, labels, info, cfg, epochs=epochs, ckpt=mgr,
             jsonl=jsonl, infos_extra=infos_extra, device_put_fn=device_put_fn)
-        # --profile traces the loops (with the switch's reward tables), as the JAX CLI's spans
+        # --profile traces the loops (with the switch's reward tables), as the JAX CLI's spans,
+        # and adds the loop's spans to its log lines
+        traced = lambda: spans.collect() if args.profile else nullcontext()
         if args.stage in ("caption", "joint") and 0 <= switch < epochs:
             # XE for `switch` epochs, then SCST on the same state and optimizer
-            with profile_trace(args.profile):
+            with profile_trace(args.profile), traced():
                 state, result_xe = loop(state, step_fn, switch, infos_extra)
                 log.info("switching to SCST at epoch %d", switch)
                 _, result = loop(state, scst_step(), epochs - switch,
                                  {**infos_extra, "stage": "scst"})
             result["best"] = max(result["best"], result_xe["best"])
         else:
-            with profile_trace(args.profile):
+            with profile_trace(args.profile), traced():
                 _, result = loop(state, step_fn, epochs, infos_extra)
     if distributed.is_primary():
         log.info("done: best %s = %.4f", cfg.train.keep_best_metric, result["best"])

@@ -250,6 +250,11 @@ class PrefetchIterator:
         """Batches the worker has drawn from the source so far."""
         return self._drawn
 
+    @property
+    def queued(self) -> int:
+        """Batches put and waiting in the queue now."""
+        return self._q.qsize()
+
     def _worker(self, batches: Iterator) -> None:
         try:
             while not (self._stop.is_set() and self._drawn >= self._target):

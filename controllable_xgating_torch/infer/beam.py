@@ -67,6 +67,7 @@ from controllable_xgating_torch.ops.kernels.topk_tail import (
     topk,
     topk_tail_weights,
 )
+from controllable_xgating_torch.utils.spans import span
 
 NEG_INF = -1e30
 
@@ -313,7 +314,9 @@ def beam_search(
     candidates penalised by `diversity_penalty` x the count of live beams
     of groups < j that chose each token at this step. Stored scores stay
     the raw log-probabilities. Diversity ignores `topk_mode` (it takes the
-    grouped selection within each group); G <= 1 is the plain beam."""
+    grouped selection within each group); G <= 1 is the plain beam.
+    The loop runs inside the span `beam` (`utils/spans.py`, timed on the
+    card)."""
     groups = int(diversity_groups or 0)
     if groups > 1:
         if beam_size % groups:
@@ -332,9 +335,10 @@ def beam_search(
             raise ValueError(f"heterogeneous ensemble members disagree on vocab: {vs}")
     else:
         members, ctxs, sums = (params,), (ctx,), (summary,)
-    loop = BeamLoop(members, ctxs, sums, beam_size, max_len, length_penalty, fused, block_unk,
-                    topk_mode, return_all, vocab_q, ens, groups, diversity_penalty)
-    return decode_graphs.run(loop, max_len, early_stop, graphs)
+    with span("beam", device=True):
+        loop = BeamLoop(members, ctxs, sums, beam_size, max_len, length_penalty, fused,
+                        block_unk, topk_mode, return_all, vocab_q, ens, groups, diversity_penalty)
+        return decode_graphs.run(loop, max_len, early_stop, graphs)
 
 
 def _diverse_select(cand: torch.Tensor, finished: torch.Tensor, groups: int, penalty: float):

@@ -60,9 +60,11 @@ eager loop.
 from __future__ import annotations
 
 import collections
+import functools
 import threading
 import time
 from contextlib import contextmanager, nullcontext
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import torch
@@ -73,6 +75,7 @@ from controllable_xgating_torch.ops.dispatch import (
     nan_checks_enabled,
 )
 from controllable_xgating_torch.ops.precision import compute_dtype
+from controllable_xgating_torch.utils.spans import count, span
 
 CHUNK = 4  # steps per captured graph
 MAX_KEYS = 16  # the reference's lru_cache(maxsize=16)
@@ -286,8 +289,6 @@ class Entry:
 
 
 _CACHE: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
-# the last graphed call: its kind, whether it captured, chunks replayed of all
-LAST: dict = {}
 _HELD: list = []  # the key sets held (`hold`) until released
 _CACHE_LOCK = threading.Lock()  # _CACHE's order and _HELD, across threads
 _THREAD = threading.local()  # .keys: the set the calling thread's keys join
@@ -399,18 +400,37 @@ def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
     return entry
 
 
+@functools.lru_cache(maxsize=None)
+def _names(kind: str) -> SimpleNamespace:
+    """The spans and counters of a loop of `kind` (made once: a dormant
+    span allocates nothing)."""
+    return SimpleNamespace(**{p: f"{kind}.{p}" for p in ("setup", "capture", "replay", "wait",
+                                                          "finish")},
+                           **{c: f"graphs.{c}.{kind}" for c in ("captures", "replays",
+                                                                 "chunks_of")})
+
+
+def _on_card(device: torch.device):
+    """A key's graphs, events and streams are its card's: capture and
+    replay with that card current, whichever the caller left current."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
+
+
 def _replay(entry: Entry, early_stop: bool) -> int:
     ledger = LaunchLedger()
+    names = _names(entry.loop.kind)
 
     def run_chunk(i: int) -> None:
-        entry.graphs[i].replay()
-        ledger.add(entry.deltas[i])
-        if early_stop:
-            entry.host_flags[i].copy_(entry.flags[i], non_blocking=True)
-            entry.events[i].record()
+        with span(names.replay):
+            entry.graphs[i].replay()
+            ledger.add(entry.deltas[i])
+            if early_stop:
+                entry.host_flags[i].copy_(entry.flags[i], non_blocking=True)
+                entry.events[i].record()
 
     def finished(i: int) -> bool:
-        entry.events[i].synchronize()
+        with span(names.wait):
+            entry.events[i].synchronize()
         return bool(entry.host_flags[i])
 
     return drive(len(entry.spans), run_chunk, finished, early_stop)
@@ -420,54 +440,76 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
     """Run `loop` for `max_len` steps (fewer with `early_stop` once
     nothing is left to do) and return `loop.finish`'s outputs, as
     `resolve_mode` decides: the eager loop (one host read a step under
-    `early_stop`), eagerly stepped chunks, or the key's captured chunks."""
+    `early_stop`), eagerly stepped chunks, or the key's captured chunks.
+
+    Spans (`utils/spans.py`), named by the loop's kind: `<kind>.setup`
+    from entry to the first step or chunk launched (with `<kind>.capture`
+    inside it at a key's first sight), `<kind>.replay` around each chunk
+    (each step of the eager loop), `<kind>.wait` around each host read of
+    the early-exit flag, `<kind>.finish`. Counters: `graphs.captures.<kind>`,
+    `graphs.replays.<kind>` and `graphs.chunks_of.<kind>` (the chunks
+    replayed, of those a call has) for the chunk runner and the graphs."""
     mode = resolve_mode(graphs, loop.device, loop.needs_grad())
+    names = _names(loop.kind)
     if mode == "eager":
-        loop.bind(loop.prepare())
-        carry = loop.init()
+        with span(names.setup):
+            loop.bind(loop.prepare())
+            carry = loop.init()
         for t in range(max_len):
-            if early_stop and bool(loop.done(carry)):
-                break
-            loop.step(carry, t)
-        return loop.finish(carry)
+            if early_stop:
+                with span(names.wait):
+                    stop = bool(loop.done(carry))
+                if stop:
+                    break
+            with span(names.replay):
+                loop.step(carry, t)
+        with span(names.finish):
+            return loop.finish(carry)
     spans = chunk_spans(max_len)
     with torch.inference_mode(False), torch.no_grad():
         if mode == "chunks":
-            loop.bind(loop.prepare())
-            state = {"carry": loop.init()}
+            with span(names.setup):
+                loop.bind(loop.prepare())
+                state = {"carry": loop.init()}
             flags: list = []
 
             def run_chunk(i: int) -> None:
-                state["carry"] = _steps(loop, state["carry"], spans[i])
-                flags.append(bool(loop.done(state["carry"])))
+                with span(names.replay):
+                    state["carry"] = _steps(loop, state["carry"], spans[i])
+                with span(names.wait):
+                    flags.append(bool(loop.done(state["carry"])))
 
             n = drive(len(spans), run_chunk, flags.__getitem__, early_stop)
-            LAST.update(kind=loop.kind, captured=False, chunks=n, of=len(spans))
-            return loop.finish(state["carry"])
-        key = loop.key() + (max_len,)
-        inp = loop.prepare()
-        held = getattr(_THREAD, "keys", None)
-        with _CACHE_LOCK:
-            entry = _CACHE.get(key)
-            if entry is not None:
-                _CACHE.move_to_end(key)
-        captured = entry is None
-        # a key's graphs, events and streams are its card's: capture and
-        # replay with that card current, whichever the caller left current
-        on_card = (torch.cuda.device(loop.device) if loop.device.type == "cuda"
-                   else nullcontext())
-        with on_card:
-            if captured:
-                entry = _capture(loop, inp, spans)
-            else:
-                entry.loop.load(inp)
+            count(names.replays, n)
+            count(names.chunks_of, len(spans))
+            with span(names.finish):
+                return loop.finish(state["carry"])
+        with span(names.setup):
+            key = loop.key() + (max_len,)
+            inp = loop.prepare()
+            held = getattr(_THREAD, "keys", None)
             with _CACHE_LOCK:
-                if held is not None:
-                    held.add(key)
+                entry = _CACHE.get(key)
+                if entry is not None:
+                    _CACHE.move_to_end(key)
+            captured = entry is None
+            with _on_card(loop.device):
                 if captured:
-                    _CACHE[key] = entry
-                    _evict()
-            copy_tree(entry.carry, entry.loop.init())
+                    count(names.captures)
+                    with span(names.capture):
+                        entry = _capture(loop, inp, spans)
+                else:
+                    entry.loop.load(inp)
+                with _CACHE_LOCK:
+                    if held is not None:
+                        held.add(key)
+                    if captured:
+                        _CACHE[key] = entry
+                        _evict()
+                copy_tree(entry.carry, entry.loop.init())
+        with _on_card(loop.device):
             n = _replay(entry, early_stop)
-        LAST.update(kind=loop.kind, captured=captured, chunks=n, of=len(spans))
-        return clone_tree(entry.loop.finish(entry.carry))
+        count(names.replays, n)
+        count(names.chunks_of, len(spans))
+        with span(names.finish):
+            return clone_tree(entry.loop.finish(entry.carry))

@@ -15,6 +15,7 @@ from torch import nn
 from controllable_xgating_torch.ops import dropout
 from controllable_xgating_torch.ops.lstm import LSTMWeights, bilstm_scan, init_lstm, lstm_scan
 from controllable_xgating_torch.ops.xgate import XGateWeights, init_xgate, xgate_fuse
+from controllable_xgating_torch.utils.spans import span
 
 
 class EncoderParams(nn.Module):
@@ -61,23 +62,27 @@ def encode(
     concat ablation has no kernel and always takes the plain path, as in
     the JAX package. With a generator and `dropout_rate > 0` the fused
     features are dropped out (keep-mask, scaled by 1 / (1 - rate)); the
-    batch is block `shard` of the global batch's rows (`dropout.keep_rows`)."""
-    if fused_kernels and params.xgate.mode == "xgate":
-        from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
+    batch is block `shard` of the global batch's rows (`dropout.keep_rows`).
+    Spans: `encode.fuse` (the fusion and its dropout) and `encode.bilstm`
+    (the scan and the summary), both timed on the card."""
+    with span("encode.fuse", device=True):
+        if fused_kernels and params.xgate.mode == "xgate":
+            from controllable_xgating_torch.ops.kernels.xgate import xgate_fuse_kernel
 
-        fused = xgate_fuse_kernel(params.xgate, app, motion)
-    else:
-        fused = xgate_fuse(params.xgate, app, motion)  # [B, T, H]
-    if gen is not None and dropout_rate > 0.0:
-        keep = dropout.keep_rows(gen, fused.shape, dropout_rate, fused.device, 0, shard)
-        fused = torch.where(keep, fused / (1.0 - dropout_rate), 0.0).to(fused.dtype)
-    if params.lstm_bwd is not None:
-        enc_out, _ = bilstm_scan(params.lstm_fwd, params.lstm_bwd, fused, frame_mask)
-    else:
-        enc_out, _ = lstm_scan(params.lstm_fwd, fused, frame_mask)
-    if frame_mask is None:
-        summary = enc_out.mean(dim=1)
-    else:
-        m = frame_mask.to(enc_out.dtype)[:, :, None]
-        summary = (enc_out * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+            fused = xgate_fuse_kernel(params.xgate, app, motion)
+        else:
+            fused = xgate_fuse(params.xgate, app, motion)  # [B, T, H]
+        if gen is not None and dropout_rate > 0.0:
+            keep = dropout.keep_rows(gen, fused.shape, dropout_rate, fused.device, 0, shard)
+            fused = torch.where(keep, fused / (1.0 - dropout_rate), 0.0).to(fused.dtype)
+    with span("encode.bilstm", device=True):
+        if params.lstm_bwd is not None:
+            enc_out, _ = bilstm_scan(params.lstm_fwd, params.lstm_bwd, fused, frame_mask)
+        else:
+            enc_out, _ = lstm_scan(params.lstm_fwd, fused, frame_mask)
+        if frame_mask is None:
+            summary = enc_out.mean(dim=1)
+        else:
+            m = frame_mask.to(enc_out.dtype)[:, :, None]
+            summary = (enc_out * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
     return enc_out, summary

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from controllable_xgating_torch.utils import spans
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = [
@@ -125,11 +127,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_long if name.endswith("_bytes") else ctypes.c_int
+        with spans.span("setup.library"):
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_long if name.endswith("_bytes") else ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -171,7 +174,7 @@ def launch(fn, device, *args) -> int:
     wrapper launch, beside the device kernels it starts."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if torch.autograd.profiler._is_profiler_enabled:
+        if spans.profiling():
             with torch.profiler.record_function(fn.__name__):
                 return fn(*args, stream)
         return fn(*args, stream)

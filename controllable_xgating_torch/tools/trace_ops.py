@@ -21,6 +21,17 @@ returns the JAX keys (`total_device_us`, `ops` of `op` / `us` / `pct`)
 with `devices`, the device ids seen, in place of `planes`. With no trace
 it raises FileNotFoundError.
 
+The program's spans (`utils/spans.py`) are in such a trace as CPU
+ranges named `cxg.<span>` (a `--profile LOGDIR` trace of `cli.eval` or
+`cli.train` has them too). `program_attribution` reads them on the
+trace's one clock: the card's idle time put down to the innermost span
+the host was in, and the runtime's launch calls likewise; each span's
+host and idle time; the idle time under no span. `parse_trace` gives it
+under `program` where the trace has such spans, and a capture adds the
+collector's `summary()` of the traced calls (`spans`) and of the set-up
+(`settle_spans`: `setup.init`, `setup.library` and the settling call's
+graph captures).
+
 The profiler does not always keep every kernel of a replayed CUDA graph.
 So a capture's report also gives `port_kernel_events`, the launches of
 the port's kernels that the trace's events account for, beside
@@ -34,12 +45,17 @@ Without a CUDA device a capture exits 1 unless `--device cpu` is given
 from __future__ import annotations
 
 import argparse
+import bisect
 import glob
 import gzip
 import json
 import os
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# runtime calls that each start one device operation (a graph launch starts many)
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync"}
+NO_SPAN = "(no program span)"
 
 
 def _events(path: str) -> list:
@@ -47,6 +63,123 @@ def _events(path: str) -> list:
     with opener(path, "rt") as f:
         data = json.load(f)
     return data.get("traceEvents", []) if isinstance(data, dict) else data
+
+
+def _merge(intervals) -> list:
+    out: list = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _innermost(spans: list) -> list:
+    """(start, end, name) segments, in order, over which one span is the
+    innermost open one (the latest started): the program's spans nest."""
+    moments = sorted({t for _, s, e in spans for t in (s, e)})
+    starts = sorted(spans, key=lambda x: x[1])
+    active, segs, j = [], [], 0
+    for a, b in zip(moments, moments[1:]):
+        while j < len(starts) and starts[j][1] <= a:
+            active.append(starts[j])
+            j += 1
+        active = [x for x in active if x[2] > a]
+        if active:
+            name = max(active, key=lambda x: (x[1], -x[2]))[0]
+            if segs and segs[-1][2] == name and segs[-1][1] == a:
+                segs[-1][1] = b
+            else:
+                segs.append([a, b, name])
+    return segs
+
+
+def program_attribution(events: list, prefix: str = "cxg.") -> dict:
+    """The card's idle time and the runtime's launch calls of one Chrome
+    trace, put down to the program's spans (CPU ranges named `prefix` +
+    span). The window runs from the first span or device operation to the
+    last; an idle gap is split where the innermost span changes. Times in
+    microseconds: `idle_us_by_span` (the innermost span, or NO_SPAN),
+    `launch_calls_by_span` (LAUNCH_CALLS by the innermost span at the
+    call), and per span name `n`, `host_us` and `idle_us` (the card idle
+    inside its intervals)."""
+    spans, busy, calls = [], [], []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        s, e = float(ev.get("ts", 0.0)), float(ev.get("ts", 0.0)) + float(ev.get("dur", 0.0))
+        name, cat = ev.get("name", ""), ev.get("cat")
+        if cat in DEVICE_CATS:
+            busy.append((s, e))
+        elif cat == "user_annotation" and name.startswith(prefix):
+            spans.append((name[len(prefix):], s, e))
+        elif name in LAUNCH_CALLS:
+            calls.append(s)
+    if not spans:
+        return {}
+    w0 = min([s for _, s, _ in spans] + [s for s, _ in busy])
+    w1 = max([e for _, _, e in spans] + [e for _, e in busy])
+    merged = _merge(busy)
+    edges = [w0] + [t for iv in merged for t in iv] + [w1]
+    gaps = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    segs = _innermost(spans)
+    idle: dict = {}
+    i = 0
+    for a, b in gaps:  # both lists in time order
+        t = a
+        while i < len(segs) and segs[i][1] <= a:
+            i += 1
+        k = i
+        while t < b:
+            if k < len(segs) and segs[k][0] < b:
+                s0, s1, name = segs[k]
+                if s0 > t:
+                    idle[NO_SPAN] = idle.get(NO_SPAN, 0.0) + (s0 - t)
+                    t = s0
+                end = min(b, s1)
+                idle[name] = idle.get(name, 0.0) + (end - t)
+                t = end
+                k += 1
+            else:
+                idle[NO_SPAN] = idle.get(NO_SPAN, 0.0) + (b - t)
+                t = b
+    seg_starts = [x[0] for x in segs]
+    launches: dict = {}
+    for c in calls:
+        k = bisect.bisect_right(seg_starts, c) - 1
+        name = segs[k][2] if k >= 0 and c < segs[k][1] else NO_SPAN
+        launches[name] = launches.get(name, 0) + 1
+    gap_starts = [a for a, _ in gaps]
+    per: dict = {}
+    for name, s, e in spans:
+        d = per.setdefault(name, {"n": 0, "host_us": 0.0, "idle_us": 0.0})
+        d["n"] += 1
+        d["host_us"] += e - s
+        k = max(bisect.bisect_right(gap_starts, s) - 1, 0)
+        while k < len(gaps) and gaps[k][0] < e:
+            d["idle_us"] += max(0.0, min(e, gaps[k][1]) - max(s, gaps[k][0]))
+            k += 1
+    busy_us = sum(min(e, w1) - max(s, w0) for s, e in merged)
+    return {"window_us": w1 - w0, "busy_us": busy_us, "idle_us": w1 - w0 - busy_us,
+            "idle_us_by_span": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
+            "launch_calls_by_span": dict(sorted(launches.items(), key=lambda kv: -kv[1])),
+            "spans": per}
+
+
+def _add_attribution(total: dict, one: dict) -> dict:
+    if not total or not one:
+        return total or one
+    for k in ("window_us", "busy_us", "idle_us"):
+        total[k] += one[k]
+    for k in ("idle_us_by_span", "launch_calls_by_span"):
+        for name, v in one[k].items():
+            total[k][name] = total[k].get(name, 0) + v
+    for name, d in one["spans"].items():
+        t = total["spans"].setdefault(name, {"n": 0, "host_us": 0.0, "idle_us": 0.0})
+        for k in d:
+            t[k] += d[k]
+    return total
 
 
 def parse_trace(logdir: str, top: int = 40) -> dict:
@@ -59,8 +192,11 @@ def parse_trace(logdir: str, top: int = 40) -> dict:
         raise FileNotFoundError(f"no *.pt.trace.json under {logdir}")
     per_op: dict[str, float] = {}
     devices, kernel_names = set(), []
+    program: dict = {}
     for path in paths:
-        for ev in _events(path):
+        events = _events(path)
+        program = _add_attribution(program, program_attribution(events))
+        for ev in events:
             if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATS:
                 continue
             name = ev.get("name", "")
@@ -70,13 +206,16 @@ def parse_trace(logdir: str, top: int = 40) -> dict:
                 kernel_names.append(name)
     ranked = sorted(per_op.items(), key=lambda kv: -kv[1])
     total = sum(per_op.values())
-    return {
+    report = {
         "devices": sorted(devices, key=str),
         "total_device_us": round(total, 1),
         "ops": [{"op": k, "us": round(v, 1), "pct": round(100 * v / total, 2) if total else 0.0}
                 for k, v in ranked[:top]],
         "port_kernel_events": kernel_event_launches(kernel_names),
     }
+    if program:
+        report["program"] = program
+    return report
 
 
 def _workload(workload: str, batch: int, dev):
@@ -128,18 +267,28 @@ def _workload(workload: str, batch: int, dev):
 
 def capture(workload: str, out: str, batch: int, reps: int, dev) -> dict:
     """Trace `reps` calls of the workload into `out` after one settling
-    call; the wrappers' launch counts over the traced span."""
+    call: the wrappers' launch counts over the traced span ("launches")
+    and the span collector's summary of the traced calls ("spans") and of
+    the set-up ("settle_spans": the parameters' init, the kernel
+    library's build or load and the settling call, which captures the
+    decode graphs), one request a call."""
     from controllable_xgating_torch.ops import kernels
-    from controllable_xgating_torch.utils import timing
+    from controllable_xgating_torch.utils import spans, timing
     from controllable_xgating_torch.utils.profiling import profile_trace
 
-    call = _workload(workload, batch, dev)
-    timing.fence(call())  # build, capture, settle
+    with spans.collect() as settle:
+        call = _workload(workload, batch, dev)
+        with spans.request():
+            timing.fence(call())  # build, capture, settle
     before = kernels.launch_counts()
-    with profile_trace(out):
-        outs = [call() for _ in range(reps)]
+    with spans.collect() as col, profile_trace(out):
+        outs = []
+        for _ in range(reps):
+            with spans.request():
+                outs.append(call())
         timing.fence(outs)
-    return {n: c - before[n] for n, c in kernels.launch_counts().items() if c != before[n]}
+    launches = {n: c - before[n] for n, c in kernels.launch_counts().items() if c != before[n]}
+    return {"launches": launches, "spans": col.summary(), "settle_spans": settle.summary()}
 
 
 def main(argv=None) -> dict:
@@ -168,11 +317,11 @@ def main(argv=None) -> dict:
 
     dev, dtype = runtime_device(args.device, None, Config())
     with precision(dtype):
-        launches = capture(args.workload, args.out, args.batch, args.reps, dev)
+        got = capture(args.workload, args.out, args.batch, args.reps, dev)
     report = parse_trace(args.out, args.top)
-    report.update(workload=args.workload, batch=args.batch, reps=args.reps, launches=launches,
+    report.update(workload=args.workload, batch=args.batch, reps=args.reps, **got,
                   events_complete=all(report["port_kernel_events"].get(n, 0) >= c
-                                      for n, c in launches.items()))
+                                      for n, c in got["launches"].items()))
     print(json.dumps(report, indent=2))
     return report
 

@@ -48,6 +48,7 @@ from controllable_xgating_torch.parallel.distributed import (
 )
 from controllable_xgating_torch.train.state import CheckpointManager, TrainState
 from controllable_xgating_torch.utils.logging import JsonlLogger, get_logger
+from controllable_xgating_torch.utils.spans import count, installed, span
 
 log = get_logger("cxg.train")
 
@@ -88,11 +89,18 @@ def train_loop(
             t0 = time.time()
             losses = []
             for i in range(steps_per_epoch):
-                state, metrics = step_fn(state, next(batches))
+                with span("train.batch_wait"):
+                    if installed() is not None:  # qsize() takes the queue's lock
+                        count("prefetch.depth", batches.queued)
+                    batch = next(batches)
+                state, metrics = step_fn(state, batch)
                 losses.append(metrics["loss"])
                 step = start_step + epoch * steps_per_epoch + i + 1
-                if step % cfg.train.log_every_steps == 0 and primary:
-                    jsonl.log(step, epoch=epoch, **{k: float(v) for k, v in metrics.items()})
+                if step % cfg.train.log_every_steps == 0:
+                    traced = _span_fields()
+                    if primary:
+                        jsonl.log(step, epoch=epoch, **{k: float(v) for k, v in metrics.items()},
+                                  **traced)
             global_step = start_step + (epoch + 1) * steps_per_epoch
             # one transfer per epoch for the summary
             mean_loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
@@ -153,6 +161,30 @@ def train_loop(
     finally:
         batches.close()
     return state, {"best": best_score, "history": history}
+
+
+def _span_fields() -> dict:
+    """With a span collector installed (`cli/train.py --profile`), the
+    log line's share of it since the last line, which it then drops: the
+    host ms a step waited for its batch, the all-reduce's ms a step (data
+    parallel only; device time on the card, host time elsewhere) and the
+    batches ready in the prefetch queue at a take, as means over the steps
+    since the last line."""
+    col = installed()
+    if col is None:
+        return {}
+    got = col.summary()
+    col.clear()
+    waits, counters = got["spans"].get("train.batch_wait"), got["counters"]
+    out = {}
+    if waits:
+        out["batch_wait_ms"] = waits["host_ms"] / waits["n"]
+        out["prefetch_depth"] = counters.get("prefetch.depth", 0) / waits["n"]
+    reduce = got["spans"].get("train.allreduce")
+    if reduce:
+        ms = reduce["device_ms"] if reduce["device_ms"] is not None else reduce["host_ms"]
+        out["allreduce_ms"] = ms / reduce["n"]
+    return out
 
 
 def _make_select_caption_fn(cfg):

@@ -27,6 +27,7 @@ from controllable_xgating_torch.train.state import (
     apply_grad_mask,
     stage_grad_mask,
 )
+from controllable_xgating_torch.utils.spans import span
 
 # vocab width from which masked_xe_sum takes the row-statistics kernel
 # (K5), as in the JAX package; the POS logits (35 tags) never do
@@ -121,12 +122,14 @@ def param_grads(loss: torch.Tensor, leaves: list) -> list:
 
 def reduce_over_group(grads: list, scalars: list, group) -> tuple[list, list]:
     """(gradients, scalars) summed over `group`'s processes in one
-    all-reduce of a flat f32 buffer; unchanged without a group."""
+    all-reduce of a flat f32 buffer (the span `train.allreduce`, timed on
+    the card); unchanged without a group."""
     if group is None:
         return grads, scalars
     flat = torch.cat([g.reshape(-1).float() for g in grads]
                      + [torch.stack([s.float() for s in scalars])])
-    all_reduce_sum(flat, group)
+    with span("train.allreduce", device=True):
+        all_reduce_sum(flat, group)
     out, i = [], 0
     for g in grads:
         out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))

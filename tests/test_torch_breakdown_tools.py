@@ -414,6 +414,7 @@ def test_tool_main_reports_jax_rows(name, monkeypatch, tmp_path):
         assert set(ret[0]["engine_stats"]) == set(serve_bench.STATS_KEYS)
     else:
         assert {"devices", "total_device_us", "ops", "workload", "launches"} <= set(ret)
+        assert "setup.init" in ret["settle_spans"]["spans"]  # the set-up is collected too
         parsed, _ = quiet(trace_ops.main, ["--parse", str(tmp_path / "tr")])
         assert parsed["total_device_us"] == ret["total_device_us"]
 

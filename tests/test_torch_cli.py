@@ -262,7 +262,8 @@ def trace_files(logdir) -> list:
 
 def test_eval_cli_profile_writes_a_trace_and_keeps_the_metrics(fixture, jax_evals, tmp_path):
     """`cli.eval --profile DIR` writes one `torch.profiler` trace of the
-    decode and the scoring (the JAX CLI's span) into DIR; its metrics and
+    decode and the scoring (the JAX CLI's span) into DIR, with the
+    program's `cxg.*` spans; its metrics and
     captions are the run's without the flag, and the JAX CLI's."""
     data, _, tdir = fixture
     runs = {}
@@ -276,6 +277,8 @@ def test_eval_cli_profile_writes_a_trace_and_keeps_the_metrics(fixture, jax_eval
     with open(tmp_path / "prof" / trace) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"aten::mm", "aten::topk"} & names, sorted(names)[:20]
+    assert {"cxg.encode", "cxg.encode.bilstm", "cxg.pos.rollout", "cxg.beam",
+            "cxg.beam.setup"} <= names  # the program's spans, on the trace's clock
     assert runs["profiled"]["metrics"] == runs["plain"]["metrics"]
     assert runs["profiled"]["captions"] == runs["plain"]["captions"]
     assert runs["plain"]["captions"] == jax_evals["beam3"][1]["captions"]

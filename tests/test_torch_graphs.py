@@ -39,6 +39,7 @@ from controllable_xgating_torch.models.decoder import DecodeContext
 from controllable_xgating_torch.ops import kernels
 from controllable_xgating_torch.ops.dispatch import set_decode_graphs, set_fused_kernels
 from controllable_xgating_torch.ops.precision import precision
+from controllable_xgating_torch.utils import spans
 from experiments import int8_vocab_matmul as j_q
 from test_torch_ensemble import ALT, BASE
 from test_torch_quant import make_cfg, numpy_params
@@ -52,11 +53,12 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture
 def chunks():
-    """Every loop through the chunk runner, for this test only."""
+    """Every loop through the chunk runner, for this test only, under a
+    span collector (yielded) that counts the chunks run."""
     set_decode_graphs("chunks")
-    graphs.LAST.clear()
     try:
-        yield
+        with spans.collect() as col:
+            yield col
     finally:
         set_decode_graphs(None)
 
@@ -102,9 +104,11 @@ def assert_same(tout, jout_stop, jout_scan):
             np.testing.assert_allclose(tout[1].numpy(), np.asarray(jout[1]), **SCORE_TOL)
 
 
-def ran_chunks(max_len: int) -> None:
-    """The last loop went through the chunk runner."""
-    assert graphs.LAST["of"] == -(-max_len // 4) and 1 <= graphs.LAST["chunks"] <= graphs.LAST["of"]
+def ran_chunks(col, max_len: int, kind: str) -> None:
+    """The test's one loop of `kind` went through the chunk runner."""
+    counters = col.summary()["counters"]
+    of, ran = counters[f"graphs.chunks_of.{kind}"], counters[f"graphs.replays.{kind}"]
+    assert of == -(-max_len // 4) and 1 <= ran <= of
 
 
 # --- greedy ---
@@ -117,7 +121,7 @@ def test_greedy_caption_fn_chunked_matches_jax(m, chunks, max_len, kw):
             for es in (True, False)]
     tout = t_eval.make_greedy_caption_fn(MAX_POS, max_len, **kw)(m.tp, *m.t_in)
     assert_same(tout, *jout)
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "greedy")
 
 
 @pytest.mark.parametrize("max_len", LENGTHS)
@@ -130,7 +134,7 @@ def test_greedy_decode_chunked_matches_jax(m, chunks, max_len, opt):
     tout = t_greedy.greedy_decode(m.tp.decoder, m.tctx, m.tsum, max_len, fused=True,
                                   early_stop=True, **tkw)
     assert_same((tout,), (jout[0],), (jout[1],))
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "greedy")
 
 
 # --- beam ---
@@ -145,7 +149,7 @@ def test_beam_caption_fn_chunked_matches_jax(m, chunks, max_len, mode, kw):
                                         **kw)(m.jp, *m.j_in) for es in (True, False)]
     tout = t_beam.make_beam_caption_fn(4, MAX_POS, max_len, topk_mode=mode, **kw)(m.tp, *m.t_in)
     assert_same(tout, *jout)
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "beam")
 
 
 @pytest.mark.parametrize("max_len", LENGTHS)
@@ -155,7 +159,7 @@ def test_beam_vocab_q_chunked_matches_jax(m, chunks, max_len, return_all):
                                vocab_q=m.jq, return_all=return_all) for es in (True, False)]
     tout = t_beam.beam_search(m.tp.decoder, m.tctx, m.tsum, 5, max_len, fused=True,
                               early_stop=True, vocab_q=m.tq, return_all=return_all)
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "beam")
     for jt, js in jout:
         np.testing.assert_array_equal(tout[0].numpy(), np.asarray(jt))
         np.testing.assert_allclose(tout[1].numpy(), np.asarray(js), **SCORE_TOL)
@@ -168,7 +172,7 @@ def test_diverse_beam_chunked_matches_jax(m, chunks, max_len):
             for es in (True, False)]
     tout = t_beam.make_beam_caption_fn(6, MAX_POS, max_len, **kw)(m.tp, *m.t_in)
     assert_same(tout, *jout)
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "beam")
 
 
 # --- ensembles ---
@@ -190,7 +194,7 @@ def test_ensemble_chunked_matches_jax(m, chunks, max_len, beam, arch):
         jparams, tparams = (m.ej[0], m.ej[2]), (m.et[0], m.et[2])
     tout = t_ens.make_ensemble_caption_fn(beam, MAX_POS, max_len, **kw)(tparams, *m.et_in)
     assert_same(tout, jfn(jparams, *m.ej_in), jscan(jparams, *m.ej_in))
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "beam" if beam > 1 else "ensemble_greedy")
 
 
 # --- the POS rollout ---
@@ -203,7 +207,7 @@ def test_pos_rollout_chunked_matches_jax(m, chunks, max_len, fused):
             for es in (True, False)]
     tags, psi = t_pos.pos_greedy_generate(m.tp.pos, m.tsum, max_len, early_stop=True,
                                           fused=fused)
-    ran_chunks(max_len)
+    ran_chunks(chunks, max_len, "pos")
     for jtags, jpsi in jout:
         np.testing.assert_array_equal(tags.numpy(), np.asarray(jtags))
         np.testing.assert_allclose(psi.numpy(), np.asarray(jpsi), **SCORE_TOL)
@@ -245,7 +249,9 @@ def test_early_stop_leaves_after_the_chunk_that_finished(m, chunks):
         tp.decoder.b_out[2] += 50.0  # EOS
         try:
             got = t_greedy.greedy_decode(tp.decoder, m.tctx, m.tsum, 9, early_stop=True)
-            assert graphs.LAST["chunks"] == 2 and graphs.LAST["of"] == 3
+            counters = chunks.summary()["counters"]
+            assert counters["graphs.replays.greedy"] == 2
+            assert counters["graphs.chunks_of.greedy"] == 3
             want = t_greedy.greedy_decode(tp.decoder, m.tctx, m.tsum, 9, early_stop=True,
                                           graphs=False)
         finally:
@@ -355,10 +361,11 @@ def test_cpu_never_takes_graphs(m, monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graphs)
     graphs.clear()
-    graphs.LAST.clear()
-    t_beam.make_beam_caption_fn(4, MAX_POS, 9)(m.tp, *m.t_in)
-    t_eval.make_greedy_caption_fn(MAX_POS, 9)(m.tp, *m.t_in)
-    assert graphs.cache_info() == [] and graphs.LAST == {}
+    with spans.collect() as col:
+        t_beam.make_beam_caption_fn(4, MAX_POS, 9)(m.tp, *m.t_in)
+        t_eval.make_greedy_caption_fn(MAX_POS, 9)(m.tp, *m.t_in)
+    counters = col.summary()["counters"]
+    assert graphs.cache_info() == [] and not any(k.startswith("graphs.") for k in counters)
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     assert graphs.resolve_mode(None, cpu, False) == "eager"
     assert graphs.resolve_mode(False, cpu, False) == "eager"
@@ -466,6 +473,5 @@ def test_held_keys_are_never_evicted(monkeypatch):
         assert captured == [0, 1, 2, 3, 4, 5, 6, 3]
     finally:
         graphs.release(keys)
-        graphs.LAST.clear()
     assert len(graphs.cache_info()) == graphs.MAX_KEYS
     graphs.clear()

@@ -131,6 +131,20 @@ def call(path: str, members, x, g, vq=None, early_stop=True):
     return out if isinstance(out, tuple) else (out,)
 
 
+def graphed(fn):
+    """fn() under a span collector: its output and, summed over the kinds
+    of loop it ran, whether a key was captured, the chunks replayed and
+    the chunks the calls had."""
+    from controllable_xgating_torch.utils import spans
+
+    with spans.collect() as col:
+        out = fn()
+    counters = col.summary()["counters"]
+    total = lambda what: sum(v for k, v in counters.items() if k.startswith(f"graphs.{what}."))
+    return out, {"captured": total("captures") > 0, "chunks": total("replays"),
+                 "of": total("chunks_of")}
+
+
 def same(got, want):
     """Token outputs equal, float outputs (scores, psi) within rtol 1e-6."""
     assert len(got) == len(want)
@@ -161,13 +175,14 @@ def test_graphed_equals_eager(dev, path, policy):
         want = call(path, members, x, False, vq)
         for replay in (False, True):  # the capturing call, then a replay
             kernels.reset_launch_counts()
-            same(call(path, members, x, True, vq), want)
-            assert graphs.LAST["captured"] is not replay
+            got, last = graphed(lambda: call(path, members, x, True, vq))
+            same(got, want)
+            assert last["captured"] is not replay
             # early stop: the chunks replayed, up to two past the one that finished
-            assert graphs.LAST["chunks"] <= graphs.LAST["of"] == -(-n_steps // 4)
+            assert last["chunks"] <= last["of"] == -(-n_steps // 4)
             if path != "pos":
                 assert kernels.launch_counts()["attn_lstm"] == \
-                    len(members) * min(n_steps, 4 * graphs.LAST["chunks"])
+                    len(members) * min(n_steps, 4 * last["chunks"])
         # every step run: a call counts the launches the eager call counts
         outs, counts = [], []
         for g in (False, True):
@@ -178,23 +193,25 @@ def test_graphed_equals_eager(dev, path, policy):
         same(outs[0], want)
         assert counts[1] == counts[0] and counts[0]["attn_lstm" if path != "pos" else "pos_lstm"]
         # other inputs: the static buffers are refreshed
-        same(call(path, members, y, True, vq), call(path, members, y, False, vq))
-        assert not graphs.LAST["captured"]
+        got, last = graphed(lambda: call(path, members, y, True, vq))
+        same(got, call(path, members, y, False, vq))
+        assert not last["captured"]
         # every parameter updated in place: the key holds, the operands are made again
         with torch.no_grad():
             for m in members:
                 for q in m.parameters():
                     q.mul_(1.05).add_(0.01)
-        same(call(path, members, x, True, vq), call(path, members, x, False, vq))
-        assert not graphs.LAST["captured"]
+        got, last = graphed(lambda: call(path, members, x, True, vq))
+        same(got, call(path, members, x, False, vq))
+        assert not last["captured"]
         # a parameter swapped for a new tensor: a new key, the right result
         for m in members:
             m.decoder.w_out = torch.nn.Parameter(m.decoder.w_out.detach() * 0.9,
                                                  requires_grad=False)
             m.pos.w_out = torch.nn.Parameter(m.pos.w_out.detach() * 0.9, requires_grad=False)
         n = len(graphs.cache_info())
-        got = call(path, members, x, True, vq)
-        assert graphs.LAST["captured"] and len(graphs.cache_info()) == n + 1
+        got, last = graphed(lambda: call(path, members, x, True, vq))
+        assert last["captured"] and len(graphs.cache_info()) == n + 1
         same(got, call(path, members, x, False, vq))
 
 
@@ -206,16 +223,14 @@ def test_graphs_follow_the_switch_and_the_lru(dev):
 
     p = model(dev)
     x = inputs(dev)
-    graphs.LAST.clear()
-    call("greedy", [p], x, None)
-    assert graphs.LAST["captured"] and len(graphs.cache_info()) == 1
-    graphs.LAST.clear()
+    _, last = graphed(lambda: call("greedy", [p], x, None))
+    assert last["captured"] and len(graphs.cache_info()) == 1
     try:
         set_decode_graphs(False)
-        call("greedy", [p], x, None)
+        _, last = graphed(lambda: call("greedy", [p], x, None))
     finally:
         set_decode_graphs(None)
-    assert graphs.LAST == {}
+    assert last == {"captured": False, "chunks": 0, "of": 0}
     for n in [n for n in range(1, 19) if n != 8]:  # 17 more batch sizes: 18 keys, 16 kept
         call("greedy", [p], tuple(t.repeat(3, 1)[:n] if t.dim() == 2 else t.repeat(3, 1, 1)[:n]
                                   for t in x), True)

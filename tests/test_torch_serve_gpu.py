@@ -151,27 +151,30 @@ def test_served_batches_replay_graphs(dev):
     """After warm-up, a served batch replays the decode loops' graphs,
     although the parameters require grad and the dispatcher thread starts
     with grad mode on."""
-    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.utils import spans
 
     m = Model(dev)
     m.params.requires_grad_(True)
     seen = []
-    with m.engine(max_wait_ms=20.0) as eng:
+    with m.engine(max_wait_ms=20.0) as eng, spans.collect() as col:
         eng.warmup()
         orig = eng._fn
 
-        def spy(*a):
+        def spy(*a):  # the dispatcher is the one thread that runs batches
+            before = col.summary()["counters"]
             out = orig(*a)
-            seen.append((torch.is_grad_enabled(), dict(graphs.LAST)))
+            after = col.summary()["counters"]
+            seen.append((torch.is_grad_enabled(),
+                         {k: v - before.get(k, 0) for k, v in after.items()}))
             return out
 
         eng._fn = spy
         for f in submit_all(eng, m.requests(6)):
             f.result(timeout=WAIT)
     assert seen
-    for grad, last in seen:
-        assert not grad and last["kind"] == "beam"
-        assert last["captured"] is False and last["chunks"] > 0
+    for grad, ran in seen:
+        assert not grad and ran.get("graphs.replays.beam", 0) > 0
+        assert not any(v for k, v in ran.items() if k.startswith("graphs.captures."))
 
 
 def test_no_capture_after_warmup(dev):
