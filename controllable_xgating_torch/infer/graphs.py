@@ -1,5 +1,5 @@
-"""The decode loops on the device: captured CUDA graphs of their steps,
-replayed in chunks.
+"""The decode loops, and the encoder's BiLSTM, on the device: captured
+CUDA graphs of their steps, replayed in chunks.
 
 Counterpart of the reference's execution model for decoding: each JAX
 decode is one compiled device loop (`lax.while_loop` / `lax.scan` under
@@ -50,7 +50,8 @@ are shared); the engine's dispatcher is its keys' one thread.
 
 `resolve_mode` picks the execution: graphs for CUDA tensors, the eager
 loop for CPU tensors and where autograd must record (SCST's POS rollout
-under gradient); `ops/dispatch.py::set_decode_graphs` and each loop's
+under gradient; the encoder's BiLSTM then runs its eager scan,
+`models/encoder.py::temporal_lstm`); `ops/dispatch.py::set_decode_graphs` and each loop's
 `graphs=` override force either. `graphs="chunks"` runs the chunk
 runner on eagerly stepped chunks, on any device: the CPU's check of the
 runner. A capture or replay that fails raises; nothing falls back to the

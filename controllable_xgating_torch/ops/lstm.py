@@ -73,19 +73,33 @@ def lstm_scan(
 ):
     """Run the cell over time. Returns (hs [B, T, H], (hT, cT)).
 
-    Masked steps carry state through unchanged and emit zero."""
-    b, t, _ = xs.shape
+    The input projection is one product over every step, hoisted out of
+    the loop; masked steps carry state through unchanged and emit zero."""
+    return lstm_scan_pre(w, mm(xs, w.wih), xs.dtype, mask, h0, c0, reverse)
+
+
+def lstm_scan_pre(
+    w: LSTMWeights,
+    x_gates: torch.Tensor,                # [B, T, 4H] f32 input projection
+    dtype: torch.dtype,                   # the state's and the outputs' dtype
+    mask: Optional[torch.Tensor] = None,
+    h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+):
+    """`lstm_scan` given its hoisted input projection."""
+    b, t, _ = x_gates.shape
     hidden = w.hidden_dim
-    h = xs.new_zeros((b, hidden)) if h0 is None else h0
-    c = xs.new_zeros((b, hidden)) if c0 is None else c0
+    h = x_gates.new_zeros((b, hidden), dtype=dtype) if h0 is None else h0
+    c = x_gates.new_zeros((b, hidden), dtype=dtype) if c0 is None else c0
     hs: list = [None] * t
     for step in (range(t - 1, -1, -1) if reverse else range(t)):
-        h_new, c_new = lstm_cell(w, xs[:, step], h, c)
+        h_new, c_new = lstm_cell_pre(w, x_gates[:, step], h, c)
         if mask is None:
             h, c = h_new, c_new
             hs[step] = h_new
             continue
-        m = mask[:, step, None].to(xs.dtype)
+        m = mask[:, step, None].to(dtype)
         h = m * h_new + (1 - m) * h
         c = m * c_new + (1 - m) * c
         hs[step] = m * h_new
@@ -98,9 +112,14 @@ def bilstm_scan(
     xs: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ):
-    """Bidirectional LSTM. Returns (hs [B, T, 2H], (hT_cat, cT_cat))."""
-    hs_f, (hf, cf) = lstm_scan(w_fwd, xs, mask)
-    hs_b, (hb, cb) = lstm_scan(w_bwd, xs, mask, reverse=True)
+    """Bidirectional LSTM. Returns (hs [B, T, 2H], (hT_cat, cT_cat)).
+
+    Both directions' input projections are one product, over
+    [wih_fwd | wih_bwd]."""
+    gates = 4 * w_fwd.hidden_dim
+    x_gates = mm(xs, torch.cat([w_fwd.wih, w_bwd.wih], 1))
+    hs_f, (hf, cf) = lstm_scan_pre(w_fwd, x_gates[..., :gates], xs.dtype, mask)
+    hs_b, (hb, cb) = lstm_scan_pre(w_bwd, x_gates[..., gates:], xs.dtype, mask, reverse=True)
     return (
         torch.cat([hs_f, hs_b], dim=-1),
         (torch.cat([hf, hb], -1), torch.cat([cf, cb], -1)),

@@ -4,8 +4,9 @@ their eager loops, on the card.
 Marked `gpu`: every test skips without a CUDA device. For each graphed
 path (greedy, its `lanes` opt-in and `vocab_q`; beam on each tail, with
 `return_all` and the length penalty, with `vocab_q`; diverse beam; an
-ensemble's beam and greedy; the POS rollout; the controllability study's
-free and controlled call), under the f32 and the bf16 policy, through
+ensemble's beam and greedy; the POS rollout; the encoder's BiLSTM, masked
+and not, and its one-direction form; the controllability study's free and
+controlled call), under the f32 and the bf16 policy, through
 the kernels: the graphed tokens equal the eager loop's
 exactly and scores are within rtol 1e-6 (the same kernels on the same
 operands: only the launch mechanism differs), on the capturing call and
@@ -213,6 +214,68 @@ def test_graphed_equals_eager(dev, path, policy):
         got, last = graphed(lambda: call(path, members, x, True, vq))
         assert last["captured"] and len(graphs.cache_info()) == n + 1
         same(got, call(path, members, x, False, vq))
+
+
+def frames(dev, seed, n=26):
+    """app and motion features over n frames, and a ragged frame mask."""
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    app = torch.randn(8, n, 40, generator=gd, device=dev)
+    mot = torch.randn(8, n, 24, generator=gd, device=dev)
+    lens = torch.tensor([n, n, 20, 13, n, 3, n, 1], device=dev)
+    return app, mot, (torch.arange(n, device=dev)[None, :] < lens[:, None]).float()
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["bilstm", "bilstm-masked", "lstm-masked"])
+def test_bilstm_graphed_equals_eager(dev, variant, policy):
+    """The encoder's BiLSTM (`models/encoder.py::BiLstmLoop`; `lstm`: one
+    direction) over 26 frames, graphed against the eager scan
+    (`set_decode_graphs(False)`): enc_out and summary within rtol 1e-6
+    on the capturing call and on a replay, each running 7 chunks of 7,
+    the first capturing and the second not; other inputs; every
+    parameter updated in place (no capture); a parameter swapped for a
+    new tensor (a new key)."""
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.models.encoder import encode
+    from controllable_xgating_torch.ops.dispatch import set_decode_graphs
+
+    p = model(dev, **({"model.encoder_bidirectional": False} if variant.startswith("lstm")
+                      else {}))
+    masked = variant.endswith("masked")
+
+    def enc(x, g):
+        app, mot, mask = x
+        set_decode_graphs(None if g else False)
+        try:
+            with torch.inference_mode():
+                out = encode(p.encoder, app, mot, mask if masked else None, fused_kernels=True)
+        finally:
+            set_decode_graphs(None)
+        torch.cuda.synchronize()
+        return out
+
+    x, y = frames(dev, 4), frames(dev, 9)
+    with precision(policy):
+        want = enc(x, False)
+        for replay in (False, True):
+            got, last = graphed(lambda: enc(x, True))
+            same(got, want)
+            assert last == {"captured": not replay, "chunks": 7, "of": 7}
+        got, last = graphed(lambda: enc(y, True))
+        same(got, enc(y, False))
+        assert not last["captured"]
+        with torch.no_grad():
+            for q in p.encoder.parameters():
+                q.mul_(1.05).add_(0.01)
+        got, last = graphed(lambda: enc(x, True))
+        same(got, enc(x, False))
+        assert not last["captured"]
+        lstm = p.encoder.lstm_fwd
+        lstm.whh = torch.nn.Parameter(lstm.whh.detach() * 0.9, requires_grad=False)
+        n = len(graphs.cache_info())
+        got, last = graphed(lambda: enc(x, True))
+        assert last["captured"] and len(graphs.cache_info()) == n + 1
+        same(got, enc(x, False))
 
 
 def test_graphs_follow_the_switch_and_the_lru(dev):

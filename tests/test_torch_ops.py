@@ -130,6 +130,75 @@ def test_bilstm_scan_masked():
     close(tc, jc)
 
 
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["lstm", "bilstm"])
+def test_hoisted_scan_grads_match_jax(policy, masked, bidirectional):
+    """The scan with its input projection hoisted into one product: the
+    gradients of a loss over its outputs and final state, by wih, whh, b
+    and xs, against the VJP of the JAX package's per-step scan (its `mm`'s
+    custom VJP on both sides). The products are the same bf16-exact
+    products; only the order of the f32 sums differs."""
+    pairs = [lstm_pair(11, 8, 10)] + ([lstm_pair(12, 8, 10)] if bidirectional else [])
+    d = len(pairs)
+    xs, w_hs, w_h, w_c = arrays(13, (3, 5, 8), (3, 5, 10 * d), (3, 10 * d), (3, 10 * d))
+    mask = np.array([[1] * 5, [1, 1, 1, 0, 0], [1, 1, 0, 0, 0]], np.float32)
+
+    def j_loss(ws, x):
+        m = jnp.asarray(mask) if masked else None
+        hs, (h, c) = (j_lstm.bilstm_scan(*ws, x, m) if bidirectional
+                      else j_lstm.lstm_scan(ws[0], x, m))
+        return (hs * w_hs).sum() + (h * w_h).sum() + (c * w_c).sum()
+
+    tws = [tw.requires_grad_(True) for _, tw in pairs]
+    tx = T(xs).requires_grad_(True)
+    with j_prec.precision(policy), t_prec.precision(policy):
+        jg_w, jg_x = jax.grad(j_loss, argnums=(0, 1))([jw for jw, _ in pairs], jnp.asarray(xs))
+        m = T(mask) if masked else None
+        hs, (h, c) = (t_lstm.bilstm_scan(*tws, tx, m) if bidirectional
+                      else t_lstm.lstm_scan(tws[0], tx, m))
+        ((hs * T(w_hs)).sum() + (h * T(w_h)).sum() + (c * T(w_c)).sum()).backward()
+    close(tx.grad, jg_x)
+    for jg, tw in zip(jg_w, tws):
+        for name in ("wih", "whh", "b"):
+            close(getattr(tw, name).grad, getattr(jg, name))
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["lstm", "bilstm"])
+def test_bilstm_loop_chunks_match_the_eager_scan(policy, masked, bidirectional):
+    """The encoder's `BiLstmLoop` through the chunk runner of
+    `infer/graphs.py` (what the card captures and replays, stepped
+    eagerly) against the eager scan and the JAX package's, over 9 frames
+    (3 chunks, the last one short): outputs and final state; masked
+    frames emit zero."""
+    from controllable_xgating_torch.infer import graphs
+    from controllable_xgating_torch.models.encoder import BiLstmLoop, EncoderParams
+    from controllable_xgating_torch.utils import spans
+
+    pairs = [lstm_pair(21, 8, 10)] + ([lstm_pair(22, 8, 10)] if bidirectional else [])
+    params = EncoderParams(xgate_pair(23, 6, 4, 8)[1], pairs[0][1],
+                           pairs[1][1] if bidirectional else None)
+    (xs,) = arrays(24, (3, 9, 8))
+    mask = np.array([[1] * 9, [1] * 6 + [0] * 3, [1, 1] + [0] * 7], np.float32)
+    jm, tm = (jnp.asarray(mask), T(mask)) if masked else (None, None)
+    with j_prec.precision(policy), t_prec.precision(policy), spans.collect() as col:
+        want = (t_lstm.bilstm_scan(pairs[0][1], pairs[1][1], T(xs), tm) if bidirectional
+                else t_lstm.lstm_scan(pairs[0][1], T(xs), tm))
+        jwant = (j_lstm.bilstm_scan(pairs[0][0], pairs[1][0], xs, jm) if bidirectional
+                 else j_lstm.lstm_scan(pairs[0][0], xs, jm))
+        hs, (h, c) = graphs.run(BiLstmLoop(params, T(xs), tm), 9, False, graphs="chunks")
+    counters = col.summary()["counters"]
+    assert counters["graphs.replays.bilstm"] == counters["graphs.chunks_of.bilstm"] == 3
+    assert hs.shape == (3, 9, 10 * len(pairs)) and hs.is_contiguous()
+    for got, t_ref, j_ref in zip((hs, h, c), (want[0], *want[1]), (jwant[0], *jwant[1])):
+        close(got, t_ref.numpy())
+        close(got, j_ref)
+    if masked:
+        assert not hs[1, 6:].any() and not hs[2, 2:].any()
+
+
 def test_precompute_keys():
     jw, tw = attn_pair(9, 12, 20, 14)
     (enc,) = arrays(10, (3, 5, 20))

@@ -188,7 +188,7 @@ def test_no_capture_after_warmup(dev):
     m = Model(dev)
     with m.engine(max_wait_ms=50.0) as eng:
         eng.warmup()
-        assert len(eng._keys) == 2 * len(BUCKETS)  # the POS rollout's and beam's
+        assert len(eng._keys) == 3 * len(BUCKETS)  # the BiLSTM's, the POS rollout's, beam's
         entries = {id(e) for e in graphs._CACHE.values()}
         # other callers' keys: greedy at batch sizes no bucket has
         with torch.inference_mode():

@@ -344,6 +344,50 @@ def test_caption_call_spans(tags):
     assert len({s.request for s in col.spans}) == 1 and col.summary()["requests"] == 1
 
 
+@pytest.mark.parametrize("mode", ["chunks", pytest.param("graphs", marks=pytest.mark.gpu)])
+def test_bilstm_loop_spans_nest_under_encode_bilstm(mode):
+    """Over 26 frames the encoder's BiLSTM runs as a loop of 7 chunks
+    (the chunk runner on the CPU, the captured graphs on the card): its
+    `bilstm.*` spans nest under `encode.bilstm` and every call counts 7
+    replays of 7 chunks; on the card the first call captures and the
+    second does not."""
+    from controllable_xgating_torch.infer import graphs as t_graphs
+    from controllable_xgating_torch.models.captioner import encode_for_inference
+    from controllable_xgating_torch.ops.dispatch import set_decode_graphs
+
+    if mode == "graphs" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0" if mode == "graphs" else "cpu")
+    m = tiny_model()
+    params = m.params.to(dev)
+    g = torch.Generator().manual_seed(6)
+    app, mot = torch.randn(3, 26, 12, generator=g), torch.randn(3, 26, 10, generator=g)
+    t_graphs.clear()
+    set_decode_graphs("chunks" if mode == "chunks" else None)
+    try:
+        calls = []
+        for _ in range(2):
+            with spans.collect() as col, spans.request(), torch.inference_mode():
+                encode_for_inference(params, app.to(dev), mot.to(dev), max_pos_len=5)
+            calls.append(col)
+    finally:
+        set_decode_graphs(None)
+        t_graphs.clear()
+    for i, col in enumerate(calls):
+        parent = {s.name: (s.parent.name if s.parent else None) for s in col.spans}
+        names = {n for n in parent if n.startswith("bilstm.")}
+        assert {"bilstm.setup", "bilstm.replay", "bilstm.finish"} <= names
+        for n in names - {"bilstm.capture"}:
+            assert parent[n] == "encode.bilstm", n
+        counters = col.summary()["counters"]
+        assert counters["graphs.replays.bilstm"] == counters["graphs.chunks_of.bilstm"] == 7
+        assert col.summary()["spans"]["bilstm.replay"]["n"] == 7
+        captured = counters.get("graphs.captures.bilstm", 0)
+        assert captured == (1 if mode == "graphs" and i == 0 else 0)
+        if captured:
+            assert parent["bilstm.capture"] == "bilstm.setup"
+
+
 # --- the train loop's log line ---
 
 
