@@ -106,7 +106,7 @@ def readings(cell: dict, seeds: list, control_seeds: list, device: str = "cuda:0
     n = int(cell["sample_calls"])
     gen = core.traffic(cell)
     _, params = port_params(model, ref_model.make_weights(model, 0, dev), dev)
-    call = caption_call(params, dec, dev)
+    call = caption_call(params, dec, int(cell["traffic_cfg"]["batch"]))
 
     def load(seed):
         w = ref_model.make_weights(model, core.derive(seed, "weights"), dev)

@@ -5,8 +5,11 @@ and reads them once, after the window. `profile` runs a few repetitions
 of a body under `torch.profiler` and returns what the per-layer metrics
 and the result's `breakdown` read: the device's busy seconds inside the
 profiled window, the window's seconds, the device operations by time,
-the longest idle gaps named by the benchmark's host span the host was in
-(`torch.profiler.record_function("bench.<span>")`).
+the longest idle gaps named by the span the host was in at the gap's
+start: the innermost of the program's spans (`cxg.<span>`, which
+`utils/spans.py` opens as a `record_function` while a profiler records),
+else the innermost of the benchmark's (`bench.<span>`), and the device
+seconds of the host-to-card copies (`Memcpy HtoD ...`) inside the window.
 
 A profile counts as complete only when its device events cover every
 kernel launch, copy and set its runtime calls made, and every launch the
@@ -31,6 +34,9 @@ KERNEL_EVENTS = {"xgate": ("xgate_chain_kernel", 3), "pos_lstm": ("pos_lstm_wgmm
                  "int8_vocab": ("int8_vocab_kernel", 1),
                  "topk_extract": ("topk_extract_wgmma_kernel", 1)}
 SPAN_PREFIX = "bench."
+PROGRAM_PREFIX = "cxg."
+NO_SPAN = "outside the benchmark's spans"
+COPY_PREFIX = "Memcpy HtoD"
 TOP = 10
 
 
@@ -84,13 +90,20 @@ def _merge(intervals: list) -> list:
     return out
 
 
-def _span_at(spans: list, t: float) -> str:
-    """The innermost benchmark span covering host time t."""
-    best, width = "outside the benchmark's spans", float("inf")
+def _span_at(spans: list, t: float):
+    """The innermost of `spans` (name, start, end) covering host time t,
+    or None."""
+    best, width = None, float("inf")
     for name, s, e in spans:
         if s <= t <= e and e - s < width:
             best, width = name, e - s
     return best
+
+
+def _gap_name(program: list, bench: list, t: float) -> str:
+    """An idle gap starting at host time t, named by the innermost program
+    span open then, else the innermost benchmark span, else NO_SPAN."""
+    return _span_at(program, t) or _span_at(bench, t) or NO_SPAN
 
 
 def _read(prof, launches: dict) -> dict:
@@ -103,27 +116,35 @@ def _read(prof, launches: dict) -> dict:
     kept = _kept_launches([e.name for e in dev])
     complete = len(dev) >= max(calls, 1) and all(kept.get(n, 0) >= c - 1e-6
                                                  for n, c in launches.items())
-    host = [(e.name[len(SPAN_PREFIX):], e.time_range.start, e.time_range.end) for e in events
-            if e.device_type == DeviceType.CPU and e.name.startswith(SPAN_PREFIX)]
-    win = [h for h in host if h[0] == "window"]
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    host = [(e.name, e.time_range.start, e.time_range.end) for e in cpu
+            if e.name.startswith(SPAN_PREFIX)]
+    program = [(e.name, e.time_range.start, e.time_range.end) for e in cpu
+               if e.name.startswith(PROGRAM_PREFIX)]
+    win = [h for h in host if h[0] == SPAN_PREFIX + "window"]
     w0, w1 = (win[0][1], win[0][2]) if win else (min(e.time_range.start for e in events),
                                                   max(e.time_range.end for e in events))
     busy = _merge([(max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in dev
                    if e.time_range.end > w0 and e.time_range.start < w1])
     busy_us = sum(e - s for s, e in busy)
     gaps = []
+    bench = [h for h in host if h[0] != SPAN_PREFIX + "window"]
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
     for s, e in zip(edges[0::2], edges[1::2]):
         if e > s:
-            gaps.append((e - s, _span_at([h for h in host if h[0] != "window"], s)))
+            gaps.append((e - s, _gap_name(program, bench, s)))
     gaps.sort(reverse=True)
     by_name: dict = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
+    copy_us = sum(min(e.time_range.end, w1) - max(e.time_range.start, w0) for e in dev
+                  if e.name.startswith(COPY_PREFIX) and e.time_range.end > w0
+                  and e.time_range.start < w1)
     return {"complete": complete, "busy_s": busy_us / 1e6, "window_s": (w1 - w0) / 1e6,
             "device_ops": [[n, v / 1e6] for n, v in ops],
             "idle_gaps": [[n, g / 1e6] for g, n in gaps[:TOP]],
+            "copy_s": copy_us / 1e6,
             "device_events": len(dev), "api_calls": calls,
             "launches": launches, "kept": kept}
 

@@ -7,7 +7,7 @@ from __future__ import annotations
 from benchmark.harness import core
 
 TINY_MODEL = dict(app_dim=24, motion_dim=16, hidden_dim=16, embed_dim=12, attn_dim=12,
-                  pos_embed_dim=12, vocab_size=50, num_frames=5)
+                  pos_embed_dim=12, vocab_size=500, num_frames=5)
 
 
 def caption_cell() -> dict:
