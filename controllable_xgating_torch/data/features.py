@@ -20,7 +20,9 @@ lives (the one place the port reads HDF5; h5py is imported in `main` only):
 
 `PrefetchIterator` (with `DevicePut` as its put function on the card)
 overlaps the train loop's batch assembly and host-to-device copy with the
-step, as the JAX package's does.
+step, as the JAX package's does; the split evaluation's batch caller
+(`infer/evaluator.py::batch_caller`) puts each batch through a `DevicePut`
+of its own.
 """
 
 from __future__ import annotations
@@ -150,9 +152,10 @@ class StagedBatch:
 
 
 class DevicePut:
-    """The put function of the train loop's prefetch: a host batch ->
-    the same dict with its `STEP_KEYS` (the steps' inputs) as tensors on
-    `device`; other keys stay as they are.
+    """The put function of the train loop's prefetch and of the split
+    evaluation's batch caller: a host batch -> the same dict with its
+    `STEP_KEYS` (the steps' inputs) as tensors on `device`; other keys
+    stay as they are.
 
     On a card each array is copied into a pinned host buffer and sent with
     `non_blocking=True` on a side stream of the card, and an event is
@@ -161,8 +164,8 @@ class DevicePut:
     are kept and reused, `STAGING` sets of them in turn; a set is written
     again only after the event of its last copies has passed. There is no
     fallback: a copy that fails raises. One caller at a time (the
-    prefetch's worker). On the CPU the arrays become tensors that share
-    their memory."""
+    prefetch's worker, or the batch caller's thread). On the CPU the
+    arrays become tensors that share their memory."""
 
     STAGING = 2
 

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from controllable_xgating_torch.data.features import DevicePut, put_now
 from controllable_xgating_torch.data.loader import eval_batches
 from controllable_xgating_torch.infer.greedy import greedy_decode
 from controllable_xgating_torch.metrics.harness import (
@@ -24,6 +25,7 @@ from controllable_xgating_torch.metrics.harness import (
     normalize_metric_name,
 )
 from controllable_xgating_torch.models.captioner import CaptionerParams, encode_for_inference
+from controllable_xgating_torch.utils import spans
 
 
 def make_greedy_caption_fn(
@@ -75,13 +77,25 @@ def sharded_call(caption_fn, replicas: dict, mesh, app, motion, frame_mask=None)
     return tuple(torch.cat([o[i].cpu() for o in outs]) for i in range(len(outs[0])))
 
 
-def _batch_caller(params, caption_fn, batch_size: int, mesh):
+def batch_caller(params, caption_fn, batch_size: int, mesh):
     """(app, motion, frame_mask) host arrays -> caption_fn's outputs: on
-    the parameters' device, or over `mesh` (the batch must divide by it)."""
+    the parameters' device, or over `mesh` (the batch must divide by it).
+
+    On one device the arrays go through a `data/features.py::DevicePut`
+    of the caller's own: on a card they are staged in pinned buffers that
+    the caller keeps and sent on a side stream, which the caption's stream
+    waits for; on the CPU they become tensors sharing their memory. The
+    put, from the host arrays to the tensors ready on the caption's stream,
+    is the span `caption.put`. Calls go one at a time."""
     if mesh is None:
-        device = params_device(params)
-        put = lambda x: None if x is None else torch.as_tensor(x, device=device)
-        return lambda app, motion, mask: caption_fn(params, put(app), put(motion), put(mask))
+        put = DevicePut(params_device(params))
+
+        def call(app, motion, mask):
+            with spans.span("caption.put", device=True):
+                x = put_now(put, {"app": app, "motion": motion, "frame_mask": mask})
+            return caption_fn(params, x["app"], x["motion"], x["frame_mask"])
+
+        return call
     if batch_size % mesh.size:
         raise ValueError(f"batch_size {batch_size} not divisible by the {mesh.size}-device mesh")
     from controllable_xgating_torch.parallel.mesh import replicate
@@ -118,7 +132,7 @@ def evaluate_split(
     indices = np.asarray(info.splits[split], np.int64)
     if len(indices) == 0:
         raise ValueError(f"split {split!r} is empty")
-    call = _batch_caller(params, caption_fn, batch_size, mesh)
+    call = batch_caller(params, caption_fn, batch_size, mesh)
     res: dict[str, list[str]] = {}
     for batch in eval_batches(store, indices, batch_size):
         tokens, _ = call(batch["app"], batch["motion"], batch.get("frame_mask"))
@@ -161,7 +175,7 @@ def evaluate_split_nbest(
     indices = np.asarray(info.splits[split], np.int64)
     if len(indices) == 0:
         raise ValueError(f"split {split!r} is empty")
-    call = _batch_caller(params, caption_fn, batch_size, mesh)
+    call = batch_caller(params, caption_fn, batch_size, mesh)
     lists: dict[str, list] = {}
     for batch in eval_batches(store, indices, batch_size):
         tokens, scores, _ = call(batch["app"], batch["motion"], batch.get("frame_mask"))

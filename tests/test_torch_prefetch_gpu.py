@@ -1,5 +1,7 @@
-"""The train loop's put function on the card (`data/features.py::DevicePut`)
-and the XE step on prefetched batches.
+"""The train loop's put function on the card (`data/features.py::DevicePut`),
+the XE step on prefetched batches, and the split evaluation's batch
+caller (`infer/evaluator.py::batch_caller`), which puts through its own
+`DevicePut`.
 
 Marked `gpu`: every test skips without a CUDA device. This file imports no
 jax, so it also runs where only torch is installed:
@@ -10,7 +12,10 @@ The put copies the steps' arrays through pinned host memory on a side
 stream; the consumer's stream waits on its event. Values are copied, not
 computed: they must equal the host batch exactly, and a step on them must
 give the losses and parameters of the same step on batches copied on the
-consumer's stream, bit for bit (f32, dropout 0).
+consumer's stream, bit for bit (f32, dropout 0). The batch caller's
+beam captions equal those of the same calls on `torch.as_tensor` puts, bit
+for bit (bf16 policy, the kernels), over batches A, B, A, B: a staging set
+refilled before its copies left it would show there.
 """
 
 import numpy as np
@@ -160,3 +165,61 @@ def test_xe_steps_on_prefetched_batches_equal_synchronous_copies(dev):
     assert la == lb and len(la) == 6
     for name in pa:
         assert torch.equal(pa[name], pb[name]), name
+
+
+class CountingPut(DevicePut):
+    """A `DevicePut` that counts the pinned buffers it allocates."""
+
+    allocs = 0
+
+    def _pinned(self, bufs, key, src):
+        before = bufs.get(key)
+        buf = super()._pinned(bufs, key, src)
+        CountingPut.allocs += buf is not before
+        return buf
+
+
+def caption_batch(seed: int):
+    """16 videos of host arrays (app, motion, frame mask), as a split's."""
+    rng = np.random.default_rng(seed)
+    app = rng.standard_normal((16, T, DA)).astype(np.float32)
+    motion = rng.standard_normal((16, T, DM)).astype(np.float32)
+    mask = (np.arange(T)[None] < rng.integers(3, T + 1, 16)[:, None]).astype(np.float32)
+    return app, motion, mask
+
+
+def test_batch_caller_pinned_put_equals_pageable_puts(dev, monkeypatch):
+    from controllable_xgating_torch.infer import evaluator
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.models.captioner import init_captioner
+    from controllable_xgating_torch.ops.precision import precision
+    from controllable_xgating_torch.utils import spans
+    from controllable_xgating_torch.utils.config import Config
+
+    cfg = Config().replace_flat({
+        "model.app_dim": DA, "model.motion_dim": DM, "model.hidden_dim": 64,
+        "model.embed_dim": 32, "model.attn_dim": 48, "model.pos_embed_dim": 32,
+        "model.vocab_size": 500, "model.pos_vocab_size": 20, "model.num_frames": T})
+    params = init_captioner(cfg, seed=3, device=dev).requires_grad_(False)
+    fn = make_beam_caption_fn(5, 9, 10, return_all=True)
+    batches = [caption_batch(s) for s in (0, 1, 0, 1)]
+    pageable = lambda x: [torch.as_tensor(v, device=dev) for v in x]
+    monkeypatch.setattr(evaluator, "DevicePut", CountingPut)
+    CountingPut.allocs = 0
+    with precision("bfloat16"):
+        fn(params, *pageable(batches[0]))  # captures the graphs
+        call = evaluator.batch_caller(params, fn, 16, None)
+        got, allocs = [], []
+        with spans.collect() as col:
+            for x in batches:
+                with spans.request():
+                    got.append(call(*x))
+                allocs.append(CountingPut.allocs)
+        want = [fn(params, *pageable(x)) for x in batches]
+    assert allocs == [3, 6, 6, 6]  # two staging sets of three arrays, then reuse
+    for g, w in zip(got, want):
+        assert len(g) == 3
+        for a, b in zip(g, w):  # tokens, scores, tags
+            assert torch.equal(a, b)
+    put = col.summary()["spans"]["caption.put"]
+    assert put["n"] == 4 and put["device_ms"] is not None
