@@ -7,9 +7,9 @@ by k rounds of arg-max as the Pallas kernel does. True log-probabilities
 of the winners are vals - lse[:, None]; PAD and BOS are excluded.
 
 As in the JAX package, no decode path routes here: beam's fused tail is
-the topk_tail kernel. It is reached from the tests and from the kernel
-phase of `chip_smoke.py`, which holds it against the plain version and
-against topk_tail on the same inputs.
+the topk_tail kernel. It is reached from the tests alone
+(`tests/test_torch_kernels_gpu.py`), which hold it against the plain
+version and against topk_tail on the same inputs.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ one full XE step over n local processes.
 Counterpart of `__graft_entry__.py::dryrun_multichip`. `train_steps` is
 what each rank of `parallel/distributed.py::launch` runs (and, outside a
 process group, the one-device reference it is held against): the tests
-on the CPU and `chip_smoke.py` on the card compare the two.
+on the CPU and on the card compare the two.
 
     python -m controllable_xgating_torch.parallel.dryrun [--ranks 2] [--device cpu]
 """

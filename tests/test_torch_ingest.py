@@ -191,9 +191,9 @@ def test_dress_rehearsal_cleans_up_and_needs_a_card(tmp_path, monkeypatch):
 def test_rehearsal_peak_rss_is_its_own(tmp_path):
     """A rehearsal started by a larger process reports its own peak RSS
     (VmRSS sampled), not the parent's that getrusage keeps across exec,
-    as the JAX script's stage lines do (on the card, started from
-    `chip_smoke.py`, its first stage read 6.97 GB that way, and 8.75 GB
-    from VmHWM)."""
+    as the JAX script's stage lines do (on the card, started from a
+    larger test process, its first stage read 6.97 GB that way, and 8.75
+    GB from VmHWM)."""
     import subprocess
     import sys
 

@@ -7,6 +7,7 @@ PyTorch version is held against the JAX Pallas function run in interpret
 mode, as tests/test_pallas.py runs it.
 """
 
+import glob
 import os
 import subprocess
 import sys
@@ -718,10 +719,22 @@ def test_pos_rollout_on_the_cpu_is_the_plain_step():
     assert kernels.launch_counts()["pos_lstm"] == 0
 
 
-def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
+GPU_TEST_FILES = sorted(glob.glob(os.path.join(REPO, "tests", "test_torch_*_gpu.py")))
+
+
+def test_the_gpu_test_files_are_found():
+    """The glob below finds the `gpu` test files: with none, the
+    parametrized check would be one skipped empty case."""
+    assert len(GPU_TEST_FILES) >= 7, GPU_TEST_FILES
+
+
+@pytest.mark.parametrize("path", GPU_TEST_FILES, ids=os.path.basename)
+def test_gpu_test_file_imports_nothing_of_jax_or_the_jax_package(path):
+    """The card has no jax: the `gpu` test files that run there import
+    none of it, nor the JAX package or the repo's JAX-side tools."""
     import ast
 
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    with open(path) as f:
         tree = ast.parse(f.read())
     mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
     mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}

@@ -17,7 +17,11 @@ Marked `gpu`: every test skips without a CUDA device. A small captioner
     kernels on) on the same padded bucket batch: tokens and tags exactly,
     scores within rtol 1e-6 (the same kernels on the same operands), and
     its launches equal the offline call's, K2 included on a batch of
-    controlled rows only.
+    controlled rows only;
+  * the same for every block of an engine over a mesh of two entries at
+    buckets (2, 8), against the offline call with its device's replica;
+  * the served batches and the unwarmed engine again with the captioner
+    at MSR-VTT width (random weights) at buckets (1, 4, 16, 64).
 This file imports no jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_serve_gpu.py
@@ -31,6 +35,7 @@ import torch
 
 from controllable_xgating_torch.ops import kernels
 from controllable_xgating_torch.ops.precision import precision
+from test_torch_msrvtt_gpu import POS_VOCAB, VOCAB, msrvtt_config
 
 pytestmark = pytest.mark.gpu
 BUCKETS = (1, 4, 16)
@@ -84,30 +89,65 @@ class Model:
                             nframes=int(rng.integers(1, t + 1)), pos_tags=tags))
         return out
 
-    def engine(self, **kw):
+    def engine(self, buckets=BUCKETS, **kw):
         from controllable_xgating_torch.serve.engine import ServingEngine
 
         return ServingEngine(self.params, self.cfg, self.vocab, self.pos_vocab, mode="beam",
-                             buckets=BUCKETS, **kw)
+                             buckets=buckets, **kw)
 
-    def offline(self, app, motion, mask, tags, use_tags):
-        """The library call on one padded bucket batch -> (packed like the
-        engine's, launches)."""
+    def offline(self, app, motion, mask, tags, use_tags, params=None):
+        """The library call on one padded bucket batch (with `params`, by
+        default the model's) -> (packed like the engine's, launches)."""
         from controllable_xgating_torch.infer.beam import beam_search
         from controllable_xgating_torch.models.captioner import encode_for_inference
 
         m, ev = self.cfg.model, self.cfg.eval
+        params = self.params if params is None else params
         before = kernels.launch_counts()
         with torch.inference_mode():
             ctx, summary, tags_out = encode_for_inference(
-                self.params, app.float(), motion.float(), mask, pos_tags=tags,
+                params, app.float(), motion.float(), mask, pos_tags=tags,
                 max_pos_len=m.max_pos_len, fused=True, early_stop=True, use_tags=use_tags)
-            toks, scores = beam_search(self.params.decoder, ctx, summary, ev.beam_size,
+            toks, scores = beam_search(params.decoder, ctx, summary, ev.beam_size,
                                        ev.max_decode_len, ev.length_penalty, fused=True,
                                        early_stop=True)
         torch.cuda.synchronize()
         after = kernels.launch_counts()
         return (toks.int(), tags_out.int(), scores), {n: after[n] - before[n] for n in after}
+
+
+class MsrvttModel(Model):
+    """The captioner at MSR-VTT width (`configs/msrvtt.json` with vocab
+    10000 and 35 POS tags, random seeded weights) and its requests: 13-38
+    frames (below, at and above its 26) at its feature widths, a quarter
+    controlled by 3-12 tags."""
+
+    def __init__(self, dev, seed=0):
+        from controllable_xgating_torch.data.vocab import Vocab
+        from controllable_xgating_torch.models.captioner import init_captioner
+
+        self.cfg = msrvtt_config()
+        self.params = init_captioner(self.cfg, seed=seed, device=dev).requires_grad_(False)
+        self.vocab = Vocab([f"w{i}" for i in range(VOCAB - 4)])
+        self.tags = [f"t{i}" for i in range(POS_VOCAB - 4)]
+        self.pos_vocab = Vocab(self.tags)
+
+    def requests(self, n, seed=0):
+        rng = np.random.default_rng(seed)
+        m, out = self.cfg.model, []
+        for i in range(n):
+            t = int(rng.integers(m.num_frames // 2, m.num_frames * 3 // 2))
+            tags = None
+            if i % 4 == 1:
+                tags = [self.tags[j] for j in rng.integers(0, len(self.tags),
+                                                           int(rng.integers(3, 13)))]
+            out.append(dict(app=rng.standard_normal((t, m.app_dim), dtype=np.float32),
+                            motion=rng.standard_normal((t, m.motion_dim), dtype=np.float32),
+                            nframes=int(rng.integers(1, t + 1)), pos_tags=tags))
+        return out
+
+
+MSRVTT_BUCKETS = (1, 4, 16, 64)
 
 
 def record(eng):
@@ -256,38 +296,69 @@ def gated_groups(eng, groups):
     return [[f.result(timeout=WAIT) for f in fs] for fs in futs], overlap
 
 
-def test_unwarmed_engine_captures_while_a_batch_is_in_flight(dev):
-    """No warm-up: each bucket's first batch captures its keys in the
-    dispatcher while the completion thread waits on the previous batch's
-    event (the capture runs in thread_local mode); nothing fails, and the
-    tokens are the warmed engine's."""
+def check_in_flight(m, buckets, seed):
+    """One batch per bucket (bf16) through an engine without warm-up, whose
+    captures must each run while the previous batch's event is pending,
+    and through a warmed engine: each request in its bucket, the same
+    captions, tags and scores."""
     from controllable_xgating_torch.infer import graphs
 
-    m = Model(dev)
-    reqs = m.requests(sum(BUCKETS), seed=1)
+    reqs = m.requests(sum(buckets), seed=seed)
     groups, start = [], 0
-    for b in BUCKETS:
+    for b in buckets:
         groups.append(reqs[start:start + b])
         start += b
     with precision("bfloat16"):
-        with m.engine(max_wait_ms=50.0) as cold:
+        with m.engine(buckets=buckets, max_wait_ms=50.0) as cold:
             got, overlap = gated_groups(cold, groups)
         graphs.clear()
-        with m.engine(max_wait_ms=50.0) as warm:
+        with m.engine(buckets=buckets, max_wait_ms=50.0) as warm:
             warm.warmup()
             want, _ = gated_groups(warm, groups)
-    assert overlap[1:] == [True] * (len(BUCKETS) - 1), overlap
-    for b, gs, ws in zip(BUCKETS, got, want):
+    assert overlap[1:] == [True] * (len(buckets) - 1), overlap
+    for b, gs, ws in zip(buckets, got, want):
         assert [r.batch_size for r in gs] == [b] * b
         assert [(r.caption, r.pos_sequence, r.score) for r in gs] == \
             [(r.caption, r.pos_sequence, r.score) for r in ws]
 
 
+def test_unwarmed_engine_captures_while_a_batch_is_in_flight(dev):
+    """No warm-up: each bucket's first batch captures its keys in the
+    dispatcher while the completion thread waits on the previous batch's
+    event (the capture runs in thread_local mode); nothing fails, and the
+    tokens are the warmed engine's (`check_in_flight`)."""
+    check_in_flight(Model(dev), BUCKETS, seed=1)
+
+
+def test_unwarmed_engine_captures_while_a_batch_is_in_flight_at_msrvtt_width(dev):
+    """`check_in_flight` at MSR-VTT width and buckets (1, 4, 16, 64)."""
+    check_in_flight(MsrvttModel(dev), MSRVTT_BUCKETS, seed=13)
+
+
+def check_served(m, calls, params_on=lambda device: None):
+    """Each recorded batch equals the offline call on the same padded
+    bucket batch, with the parameters of the device it ran on: tokens and
+    tags exactly, scores within rtol 1e-6 (the same kernels on the same
+    operands), the same launches; the last batch, of controlled rows
+    only, still rolls the POS generator (K2)."""
+    assert len(calls) >= 2
+    for inputs, packed, launches in calls:
+        (toks, tags, scores), want = m.offline(*inputs, params=params_on(inputs[0].device))
+        nb, lp = toks.shape[1], tags.shape[1]
+        assert torch.equal(packed[:, :nb], toks)
+        assert torch.equal(packed[:, nb:nb + lp], tags)
+        torch.testing.assert_close(packed[:, -1].view(torch.float32), scores,
+                                   rtol=1e-6, atol=0.0)
+        assert launches == want
+        assert launches["xgate"] == 1 and launches["pos_lstm"] > 0
+        assert launches["attn_lstm"] > 0 and launches["topk_tail"] > 0
+    assert bool(calls[-1][0][4].all())  # the last batch: controlled rows only
+
+
 @pytest.mark.parametrize("policy", ["float32", "bfloat16"])
 def test_served_batches_equal_the_offline_call(dev, policy):
     """Concurrent mixed requests: every served batch equals the offline
-    library call on the same padded bucket batch, with the same launches;
-    a batch of controlled rows only still rolls the POS generator (K2)."""
+    library call on the same padded bucket batch (`check_served`)."""
     m = Model(dev)
     reqs = m.requests(24, seed=2)
     controlled = [dict(r, pos_tags=["t1", "t2"]) for r in m.requests(3, seed=3)]
@@ -299,15 +370,44 @@ def test_served_batches_equal_the_offline_call(dev, policy):
                 f.result(timeout=WAIT)
             for f in submit_all(eng, controlled, threads=1):
                 f.result(timeout=WAIT)
-        assert len(calls) >= 2
-        for inputs, packed, launches in calls:
-            (toks, tags, scores), want = m.offline(*inputs)
-            nb, lp = toks.shape[1], tags.shape[1]
-            assert torch.equal(packed[:, :nb], toks)
-            assert torch.equal(packed[:, nb:nb + lp], tags)
-            torch.testing.assert_close(packed[:, -1].view(torch.float32), scores,
-                                       rtol=1e-6, atol=0.0)
-            assert launches == want
-            assert launches["xgate"] == 1 and launches["pos_lstm"] > 0
-            assert launches["attn_lstm"] > 0 and launches["topk_tail"] > 0
-        assert bool(calls[-1][0][4].all())  # the last batch: controlled rows only
+        check_served(m, calls)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_served_batches_equal_the_offline_call_at_msrvtt_width(dev, policy):
+    """At MSR-VTT width and buckets (1, 4, 16, 64), 64 mixed requests from
+    4 threads, then 4 controlled ones from one: every served batch equals
+    the offline library call on the same padded bucket batch
+    (`check_served`)."""
+    m = MsrvttModel(dev)
+    controlled = [dict(r, pos_tags=m.tags[:6]) for r in m.requests(4, seed=12)]
+    with precision(policy):
+        with m.engine(buckets=MSRVTT_BUCKETS) as eng:
+            eng.warmup()
+            calls = record(eng)
+            for f in submit_all(eng, m.requests(64, seed=11)):
+                f.result(timeout=WAIT)
+            for f in submit_all(eng, controlled, threads=1):
+                f.result(timeout=WAIT)
+        check_served(m, calls)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_mesh_engine_blocks_equal_the_offline_call(dev, policy):
+    """An engine over a mesh of two entries (two cards, or the one card
+    twice) at buckets 2 and 8: every block it decodes equals the offline
+    call on that block with its device's replica (`check_served`)."""
+    from controllable_xgating_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2) if torch.cuda.device_count() >= 2 else make_mesh(devices=[dev, dev])
+    m = Model(dev)
+    controlled = [dict(r, pos_tags=["t1", "t2"]) for r in m.requests(4, seed=22)]
+    with precision(policy):
+        with m.engine(buckets=(2, 8), mesh=mesh, max_wait_ms=5.0) as eng:
+            eng.warmup()
+            calls = record(eng)
+            for f in submit_all(eng, m.requests(16, seed=21)):
+                f.result(timeout=WAIT)
+            for f in submit_all(eng, controlled, threads=1):
+                f.result(timeout=WAIT)
+        check_served(m, calls, lambda device: eng._replicas[device])
