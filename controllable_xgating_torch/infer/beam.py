@@ -93,6 +93,7 @@ class BeamLoop(decode_graphs.StepLoop):
     one step of the chosen tail, finish = the best (or every) hypothesis."""
 
     kind = "beam"
+    raw = ("ctxs", "sums", "vocab_q")
 
     def __init__(self, members, ctxs, sums, k: int, max_len: int, length_penalty: float,
                  fused: Optional[bool], block_unk: bool, topk_mode: str, return_all: bool,
@@ -125,11 +126,6 @@ class BeamLoop(decode_graphs.StepLoop):
 
     def modules(self) -> list:
         return list(self.members)
-
-    def key_tensors(self) -> list:
-        q = self.vocab_q
-        return [x for cx, s in zip(self.ctxs, self.sums) for x in (*cx, s)] + \
-            ([] if q is None else [q.wq, q.scale, q.bias])
 
     def prepare(self) -> dict:
         tile = lambda x: None if x is None else x.repeat_interleave(self.k, dim=0)

@@ -85,6 +85,7 @@ class EnsembleGreedyLoop(decode_graphs.StepLoop):
     their mean log-probs, finish = the tokens."""
 
     kind = "ensemble_greedy"
+    raw = ("ctxs", "sums")
 
     def __init__(self, params_m, ctx_m, summary_m, max_len: int, block_unk: bool,
                  fused: Optional[bool]):
@@ -97,9 +98,6 @@ class EnsembleGreedyLoop(decode_graphs.StepLoop):
 
     def modules(self) -> list:
         return list(self.members)
-
-    def key_tensors(self) -> list:
-        return [x for cx, s in zip(self.ctxs, self.sums) for x in (*cx, s)]
 
     def prepare(self) -> dict:
         return dict(ctx=list(self.ctxs), summary=list(self.sums),

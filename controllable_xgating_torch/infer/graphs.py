@@ -1,26 +1,35 @@
 """The decode loops, and the encoder's BiLSTM, on the device: captured
-CUDA graphs of their steps, replayed in chunks.
+CUDA graphs of their set-up, their steps in chunks, and their finish.
 
 Counterpart of the reference's execution model for decoding: each JAX
 decode is one compiled device loop (`lax.while_loop` / `lax.scan` under
 `jax.jit`), memoised per static signature (`lru_cache(maxsize=16)` over
 the jitted caption functions). Here a loop is split as the reference's
-scan is: its inputs, its carry (`init`), `step(carry, t)` and `finish`.
-On a CUDA device the `max_len` steps are captured once per key as
-`torch.cuda.CUDAGraph`s, one per chunk of `CHUNK` steps (the step index
-`t` baked in), all in one memory pool, and every later call with that key
-refreshes the graphs' static buffers and replays them in order. The host
-makes one read per chunk where the eager loop syncs once per step.
+scan is: its inputs (`prepare`, `bind`), its carry (`init`), `step(carry,
+t)` and `finish`. On a CUDA device a key's first call captures, into one
+memory pool, a prologue graph (`prepare`, `bind` and `init`), one graph
+per chunk of `CHUNK` steps (the step index `t` baked in) and an epilogue
+graph (`finish`). Every later call with that key copies its raw inputs
+(the tensors of the loop's `raw` attributes: the context, the summary)
+into the key's static copies of them and replays prologue, chunks and
+epilogue in order: the host makes no other launch for the loop, and one
+read per chunk where the eager loop syncs once per step.
 
-The invariant the graphs rest on: everything a captured step reads is
+The invariant the graphs rest on: everything a captured graph reads is
 either a parameter tensor whose `data_ptr`, shape and dtype are part of
-the key, or a static buffer that the call refreshes (`copy_`) before the
-first replay: the loop's inputs, among them the kernels' weight operands
-made again from the parameters on every call (an optimizer that updates
-the parameters in place keeps the key, so operands made once per key
-would decode with stale weights), and the carry. Everything it writes is
-a static buffer: a chunk's graph copies the carry it ends with back into
-the static carry. The caller receives clones.
+the key, a static raw input that the call refreshes (`copy_`) before the
+prologue, or a buffer an earlier graph of the key wrote in this call.
+The kernels' weight operands are made from the parameters inside the
+prologue, so they are made again on the card at every replay: an
+optimizer that updates the parameters in place keeps the key and is seen
+by the next call. Everything a graph writes is a static buffer of the
+pool: the prologue's inputs and carry, a chunk's carry (its graph copies
+the carry it ends with back into the static carry), the epilogue's
+outputs. The caller receives clones. Nothing in `prepare`, `bind`, `init`
+or `finish` reads a device value on the host or copies a tensor in from
+another device (a capture cannot hold either), and the host state they
+set (a kernel's TMA descriptors, a buffer index) is the same on every
+call with a key.
 
 Early exit: every chunk's graph also writes its "nothing left to do" flag
 (every beam finished, no row alive). With `early_stop` the flag is copied
@@ -31,9 +40,9 @@ zero cost in sorted order, a dead row emits PAD), so every result is the
 eager loop's.
 
 The kernel wrappers count their launches in Python, which runs at the
-warm-up and at capture and not at replay: a key records each chunk's
+warm-up and at capture and not at replay: a key records each graph's
 count at capture, the counters are put back as they were before the
-warm-up, and each replay adds its chunk's count, so a call counts what
+warm-up, and each replay adds its graph's count, so a call counts what
 the eager call counts.
 
 Threads: a capture runs in `capture_error_mode="thread_local"`, so that
@@ -53,9 +62,9 @@ loop for CPU tensors and where autograd must record (SCST's POS rollout
 under gradient; the encoder's BiLSTM then runs its eager scan,
 `models/encoder.py::temporal_lstm`); `ops/dispatch.py::set_decode_graphs` and each loop's
 `graphs=` override force either. `graphs="chunks"` runs the chunk
-runner on eagerly stepped chunks, on any device: the CPU's check of the
-runner. A capture or replay that fails raises; nothing falls back to the
-eager loop.
+runner on eagerly stepped chunks, with an eager set-up and finish, on
+any device: the CPU's check of the runner. A capture or replay that
+fails raises; nothing falls back to the eager loop.
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ import threading
 import time
 from contextlib import contextmanager, nullcontext
 from types import SimpleNamespace
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -89,47 +98,46 @@ class StepLoop:
     """A decode loop split as the reference's scan. A subclass is made per
     call from that call's arguments and supplies:
 
+      `raw`: the names of the attributes that hold the call's own tensors
+          (trees of them: the context, the summary), which the loop reads
+          only in `prepare`, `bind`, `init` and `finish`;
       `prepare()` -> this call's inputs (a tree of tensors: dicts, lists,
           tuples, NamedTuples; None and Python scalars as leaves);
-      `init()` -> the carry (a dict) from `self.inp`;
+      `init()` -> the carry (a dict of new tensors) from `self.inp`;
       `step(carry, t)`: one step, rebinding the carry's entries to new
           tensors and writing its history buffers in place;
       `done(carry)` -> a bool tensor on the device: nothing is left to do;
       `finish(carry)` -> the outputs;
-      `key_options()`, `modules()` and `key_tensors()` for the cache key,
-      `device`.
-    `bind(inp)` makes the loop step on `inp`; `load(inp)` refreshes the
-    bound inputs in place."""
+      `key_options()` and `modules()` for the cache key, `device`.
+    `bind(inp)` makes the loop step on `inp`."""
 
     kind = "loop"
+    raw: tuple = ()
     device: torch.device
     inp: dict
 
     def bind(self, inp: dict) -> None:
         self.inp = inp
 
-    def load(self, inp: dict) -> None:
-        copy_tree(self.inp, inp)
+    def raw_inputs(self) -> dict:
+        return {n: getattr(self, n) for n in self.raw}
 
     def modules(self) -> list:
-        return []
-
-    def key_tensors(self) -> list:
         return []
 
     def key_options(self) -> tuple:
         return ()
 
     def key(self) -> tuple:
-        return make_key(self.kind, self.key_options(), self.modules(), self.key_tensors())
+        return make_key(self.kind, self.key_options(), self.modules(), self.raw_inputs())
 
     def needs_grad(self) -> bool:
         """Whether autograd would record this call: grad mode on and some
-        parameter or input requires grad."""
+        parameter or raw input requires grad."""
         if not torch.is_grad_enabled():
             return False
         return any(p.requires_grad for m in self.modules() for p in m.parameters()) or any(
-            t is not None and t.requires_grad for t in self.key_tensors())
+            t.requires_grad for t in tensors_of(self.raw_inputs()))
 
 
 def chunk_spans(max_len: int, chunk: int = CHUNK) -> list[range]:
@@ -158,18 +166,30 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def clone_tree(x):
-    """A copy of a tree of dicts, lists and tuples with every tensor leaf
-    cloned; other leaves are kept."""
+def map_tree(fn, x):
+    """A tree of dicts, lists and tuples shaped as `x`, with `fn` of every
+    tensor leaf; other leaves are kept."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return fn(x)
     if isinstance(x, dict):
-        return {k: clone_tree(v) for k, v in x.items()}
+        return {k: map_tree(fn, v) for k, v in x.items()}
     if _is_namedtuple(x):
-        return type(x)(*(clone_tree(v) for v in x))
+        return type(x)(*(map_tree(fn, v) for v in x))
     if isinstance(x, (list, tuple)):
-        return type(x)(clone_tree(v) for v in x)
+        return type(x)(map_tree(fn, v) for v in x)
     return x
+
+
+def clone_tree(x):
+    """A copy of a tree with every tensor leaf cloned; other leaves are kept."""
+    return map_tree(torch.Tensor.clone, x)
+
+
+def tensors_of(x) -> list:
+    """The tensor leaves of a tree, in order."""
+    out: list = []
+    map_tree(out.append, x)
+    return out
 
 
 def copy_tree(dst, src) -> None:
@@ -197,23 +217,32 @@ def copy_tree(dst, src) -> None:
 # --- the key ---
 
 
-def tensor_sig(x) -> Optional[tuple]:
-    return None if x is None else (tuple(x.shape), x.dtype, str(x.device))
+def tree_sig(x):
+    """A tree's structure with every tensor leaf as its (shape, dtype,
+    device), hashable: what a static copy of the tree must match."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, str(x.device))
+    if isinstance(x, dict):
+        return tuple((k, tree_sig(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, *(tree_sig(v) for v in x))
+    return x
 
 
 def param_sig(module) -> tuple:
     """(name, data_ptr, shape, dtype) of every parameter of `module`: a
-    captured step reads parameters at the addresses it saw."""
+    captured graph reads parameters at the addresses it saw."""
     return tuple((n, p.data_ptr(), tuple(p.shape), p.dtype) for n, p in module.named_parameters())
 
 
-def make_key(kind: str, options: tuple, modules, tensors) -> tuple:
+def make_key(kind: str, options: tuple, modules, raw) -> tuple:
     """The cache key: the loop's kind and options, the compute policy and
     the kernel setting as they are now, every parameter of `modules`
-    (address, shape, dtype) and the shape, dtype and device of `tensors`
-    (None for an absent one, e.g. no frame mask)."""
+    (address, shape, dtype) and the signature of the raw inputs `raw`
+    (shape, dtype and device of each tensor, None for an absent one, e.g.
+    no frame mask)."""
     return (kind, options, compute_dtype(), fused_enabled(),
-            tuple(param_sig(m) for m in modules), tuple(tensor_sig(t) for t in tensors))
+            tuple(param_sig(m) for m in modules), tree_sig(raw))
 
 
 # --- launch accounting ---
@@ -270,15 +299,19 @@ def resolve_mode(override, device: torch.device, needs_grad: bool) -> str:
 
 
 class Entry:
-    """One key's captured chunks: the loop that was captured (its static
-    inputs bound), the static carry, one graph per chunk in one pool, the
-    chunks' device flags and their pinned host copies, and each chunk's
-    launch counts. `capture_s` and `pool_bytes` (the device memory the
-    capture reserved) describe the capture."""
+    """One key's captured loop: the loop that was captured (its static raw
+    inputs in place, its prepared inputs bound), the prologue's graph, one
+    graph per chunk and the epilogue's graph, in one pool, each with the
+    launches the wrappers counted at its capture; the static carry and
+    outputs; the chunks' device flags and their pinned host copies.
+    `capture_s` and `pool_bytes` (the device memory the capture reserved)
+    describe the capture."""
 
     def __init__(self, loop: StepLoop, spans: list[range]):
         self.loop, self.spans = loop, spans
         self.carry: dict = {}
+        self.outputs = None
+        self.prologue = self.epilogue = None  # (graph, launches)
         self.graphs: list = []
         self.deltas: list = []
         self.capture_s = 0.0
@@ -287,6 +320,20 @@ class Entry:
         self.flags = torch.zeros(n, dtype=torch.bool, device=dev)
         self.host_flags = torch.zeros(n, dtype=torch.bool, pin_memory=True)
         self.events = [torch.cuda.Event() for _ in range(n)]
+
+    def setup(self) -> None:
+        """Replay the prologue: this call's inputs and carry, from the
+        static raw inputs and the parameters."""
+        graph, launches = self.prologue
+        graph.replay()
+        LaunchLedger().add(launches)
+
+    def finish(self):
+        """Replay the epilogue; clones of its outputs."""
+        graph, launches = self.epilogue
+        graph.replay()
+        LaunchLedger().add(launches)
+        return clone_tree(self.outputs)
 
 
 _CACHE: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
@@ -356,43 +403,75 @@ def _steps(loop: StepLoop, carry: dict, span) -> dict:
 WARMUP_LAUNCHES: collections.Counter = collections.Counter()
 
 
-def _capture(loop: StepLoop, inp: dict, spans: list[range]) -> Entry:
-    """First sight of a key: static inputs and carry, a warm-up of chunk 0
-    on a side stream of the loop's device (it builds the kernel library,
-    makes cuBLAS's handle and workspace, sets each kernel's attributes),
-    then every chunk captured on that stream into one pool (torch's
-    default capture stream belongs to the device of the first capture in
-    the process, so a second card needs its own); the launch counters end
-    as they began, the warm-up's launches added to WARMUP_LAUNCHES."""
+def _setup(loop: StepLoop) -> dict:
+    """The loop's set-up: its inputs prepared and bound, its carry."""
+    loop.bind(loop.prepare())
+    return loop.init()
+
+
+def _own(outputs, carry: dict):
+    """`outputs` with every tensor that shares memory with the carry
+    cloned: the epilogue's outputs are buffers of its own (a finish that
+    returns carry entries as they are would capture an empty graph)."""
+    held = {t.untyped_storage().data_ptr() for t in tensors_of(carry)}
+    return map_tree(lambda t: t.clone() if t.untyped_storage().data_ptr() in held else t, outputs)
+
+
+def _capture(loop: StepLoop, spans: list[range]) -> Entry:
+    """First sight of a key: static copies of the raw inputs, then a
+    warm-up of the set-up, chunk 0 and the finish on a side stream of the
+    loop's device (it builds the kernel library, makes cuBLAS's handle and
+    workspace, sets each kernel's attributes, makes what the set-up keeps
+    across calls: `gate_perm`, a rollout's TMA descriptors), then the
+    prologue, every chunk and the epilogue captured on that stream into
+    one pool (torch's default capture stream belongs to the device of the
+    first capture in the process, so a second card needs its own). The
+    prologue's inputs and carry are the buffers the chunks read and
+    write. Nothing has run on the captured buffers yet: the caller replays
+    them as on any call. The launch counters end as they began, the
+    warm-up's launches added to WARMUP_LAUNCHES."""
     dev = loop.device
     entry = Entry(loop, spans)
     ledger = LaunchLedger()
     counts = ledger.read()
     t0 = time.perf_counter()
     try:
-        loop.bind(clone_tree(inp))
-        entry.carry = clone_tree(loop.init())
+        for name, static in clone_tree(loop.raw_inputs()).items():
+            setattr(loop, name, static)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            loop.done(_steps(loop, entry.carry, spans[0]))
+            work = _steps(loop, _setup(loop), spans[0])
+            loop.done(work)
+            loop.finish(work)
         torch.cuda.current_stream(dev).wait_stream(side)
         WARMUP_LAUNCHES.update(ledger.since(counts))
-        copy_tree(entry.carry, loop.init())  # the warm-up stepped the carry
+        del work
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # as each capture's entry does: the pool is what it adds
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
-        for i, span in enumerate(spans):
+
+        def capture(fn):
             graph = torch.cuda.CUDAGraph()
             before = ledger.read()
             with torch.cuda.graph(graph, pool=pool, stream=side,
                                   capture_error_mode="thread_local"):
+                out = fn()
+            return (graph, ledger.since(before)), out
+
+        entry.prologue, entry.carry = capture(lambda: _setup(loop))
+        for i, span in enumerate(spans):
+            def chunk(i=i, span=span):
                 work = _steps(loop, entry.carry, span)
                 entry.flags[i].copy_(loop.done(work))
                 copy_tree(entry.carry, work)  # the carry this chunk ends with
-            entry.deltas.append(ledger.since(before))
+
+            (graph, launches), _ = capture(chunk)
             entry.graphs.append(graph)
+            entry.deltas.append(launches)
+        entry.epilogue, entry.outputs = capture(
+            lambda: _own(loop.finish(entry.carry), entry.carry))
         torch.cuda.synchronize(dev)
         entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
     finally:
@@ -407,7 +486,7 @@ def _names(kind: str) -> SimpleNamespace:
     span allocates nothing)."""
     return SimpleNamespace(**{p: f"{kind}.{p}" for p in ("setup", "capture", "replay", "wait",
                                                           "finish")},
-                           **{c: f"graphs.{c}.{kind}" for c in ("captures", "replays",
+                           **{c: f"graphs.{c}.{kind}" for c in ("captures", "setups", "replays",
                                                                  "chunks_of")})
 
 
@@ -441,21 +520,23 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
     """Run `loop` for `max_len` steps (fewer with `early_stop` once
     nothing is left to do) and return `loop.finish`'s outputs, as
     `resolve_mode` decides: the eager loop (one host read a step under
-    `early_stop`), eagerly stepped chunks, or the key's captured chunks.
+    `early_stop`), eagerly stepped chunks, or the key's captured graphs.
 
     Spans (`utils/spans.py`), named by the loop's kind: `<kind>.setup`
     from entry to the first step or chunk launched (with `<kind>.capture`
-    inside it at a key's first sight), `<kind>.replay` around each chunk
-    (each step of the eager loop), `<kind>.wait` around each host read of
-    the early-exit flag, `<kind>.finish`. Counters: `graphs.captures.<kind>`,
+    inside it at a key's first sight; on the graphs' path it ends with the
+    prologue's replay), `<kind>.replay` around each chunk (each step of
+    the eager loop), `<kind>.wait` around each host read of the early-exit
+    flag, `<kind>.finish`. Counters: `graphs.captures.<kind>` (calls that
+    captured), `graphs.setups.<kind>` (calls whose set-up was a replayed
+    prologue: every other call of the graphs' path),
     `graphs.replays.<kind>` and `graphs.chunks_of.<kind>` (the chunks
     replayed, of those a call has) for the chunk runner and the graphs."""
     mode = resolve_mode(graphs, loop.device, loop.needs_grad())
     names = _names(loop.kind)
     if mode == "eager":
         with span(names.setup):
-            loop.bind(loop.prepare())
-            carry = loop.init()
+            carry = _setup(loop)
         for t in range(max_len):
             if early_stop:
                 with span(names.wait):
@@ -470,8 +551,7 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
     with torch.inference_mode(False), torch.no_grad():
         if mode == "chunks":
             with span(names.setup):
-                loop.bind(loop.prepare())
-                state = {"carry": loop.init()}
+                state = {"carry": _setup(loop)}
             flags: list = []
 
             def run_chunk(i: int) -> None:
@@ -487,7 +567,6 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
                 return loop.finish(state["carry"])
         with span(names.setup):
             key = loop.key() + (max_len,)
-            inp = loop.prepare()
             held = getattr(_THREAD, "keys", None)
             with _CACHE_LOCK:
                 entry = _CACHE.get(key)
@@ -498,19 +577,20 @@ def run(loop: StepLoop, max_len: int, early_stop: bool, graphs=None):
                 if captured:
                     count(names.captures)
                     with span(names.capture):
-                        entry = _capture(loop, inp, spans)
+                        entry = _capture(loop, spans)
                 else:
-                    entry.loop.load(inp)
+                    count(names.setups)
+                    copy_tree(entry.loop.raw_inputs(), loop.raw_inputs())
                 with _CACHE_LOCK:
                     if held is not None:
                         held.add(key)
                     if captured:
                         _CACHE[key] = entry
                         _evict()
-                copy_tree(entry.carry, entry.loop.init())
+                entry.setup()
         with _on_card(loop.device):
             n = _replay(entry, early_stop)
         count(names.replays, n)
         count(names.chunks_of, len(spans))
-        with span(names.finish):
-            return clone_tree(entry.loop.finish(entry.carry))
+        with span(names.finish), _on_card(loop.device):
+            return entry.finish()

@@ -66,6 +66,7 @@ class RolloutLoop(decode_graphs.StepLoop):
     (`lanes_fits`)."""
 
     kind = "greedy"
+    raw = ("ctx", "summary", "vocab_q")
 
     def __init__(self, params: DecoderParams, ctx: DecodeContext, summary: torch.Tensor,
                  max_len: int, generator: Optional[torch.Generator], temperature: float,
@@ -82,10 +83,6 @@ class RolloutLoop(decode_graphs.StepLoop):
 
     def modules(self) -> list:
         return [self.params]
-
-    def key_tensors(self) -> list:
-        q = self.vocab_q
-        return [*self.ctx, self.summary, *(() if q is None else (q.wq, q.scale, q.bias))]
 
     def prepare(self) -> dict:
         p, q = self.params, self.vocab_q

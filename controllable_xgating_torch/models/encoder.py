@@ -64,6 +64,7 @@ class BiLstmLoop(StepLoop):
     state through and emit zero."""
 
     kind = "bilstm"
+    raw = ("xs", "mask")
 
     def __init__(self, params: EncoderParams, xs: torch.Tensor,
                  mask: Optional[torch.Tensor]):
@@ -73,9 +74,6 @@ class BiLstmLoop(StepLoop):
 
     def modules(self) -> list:
         return self.weights
-
-    def key_tensors(self) -> list:
-        return [self.xs, self.mask]
 
     def prepare(self) -> dict:
         ws, xs, mask = self.weights, self.xs, self.mask

@@ -118,9 +118,10 @@ class PosRolloutLoop(StepLoop):
     argmax step, finish = (tags, psi). On the kernel path the cell is a
     `PosLstmRollout`, made at the first `init` and `reset` at every later
     one (its operands made again from the parameters, its buffers and TMA
-    descriptors kept)."""
+    descriptors kept, so that the reset replays in a graph's prologue)."""
 
     kind = "pos"
+    raw = ("summary",)
 
     def __init__(self, params: PosGeneratorParams, summary: torch.Tensor, max_len: int,
                  fused: Optional[bool]):
@@ -134,9 +135,6 @@ class PosRolloutLoop(StepLoop):
 
     def modules(self) -> list:
         return [self.params]
-
-    def key_tensors(self) -> list:
-        return [self.summary]
 
     def prepare(self) -> dict:
         return dict(summary=self.summary, s_gates=_summary_gates(self.params, self.summary))

@@ -16,6 +16,7 @@ SIMT path of two launches.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -55,23 +56,35 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def gate_perm(hd: int) -> torch.Tensor:
+def gate_perm(hd: int, device="cpu") -> torch.Tensor:
     """The bf16 cell kernel's order of the 4 Hd LSTM gate columns: entry p
     is the source column (gate * Hd + unit) of packed column p, -1 for the
     padding units of Hd rounded up to 4. Packed 16-column block j holds
     units 4j .. 4j + 3; unit 4j + q has i, f at columns 2q, 2q + 1 and g, o
     at 8 + 2q, 9 + 2q, the columns thread q of a quad holds in a wgmma
-    accumulator, so the LSTM tail needs no exchange between threads."""
-    p = torch.arange(4 * _round_up(hd, 4))
-    w = p % 16
-    unit = 4 * (p // 16) + (w % 8) // 2
-    gate = w % 2 + 2 * (w // 8)
-    return torch.where(unit < hd, gate * hd + unit, torch.full_like(p, -1))
+    accumulator, so the LSTM tail needs no exchange between threads.
+
+    Made once for each (hd, device), on that device, and shared (do not
+    write it): packing a weight copies nothing in from the host, so a
+    loop's set-up can be captured in a CUDA graph (`infer/graphs.py`)."""
+    return _gate_perm(hd, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _gate_perm(hd: int, device: torch.device) -> torch.Tensor:
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("gate_perm is first made outside a CUDA graph capture")
+    with torch.inference_mode(False), torch.no_grad():
+        p = torch.arange(4 * _round_up(hd, 4), device=device)
+        w = p % 16
+        unit = 4 * (p // 16) + (w % 8) // 2
+        gate = w % 2 + 2 * (w // 8)
+        return torch.where(unit < hd, gate * hd + unit, torch.full_like(p, -1))
 
 
 def _permute_gates(w: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """w [..., 4 Hd] -> [..., len(perm)] in gate_perm order, zero padding."""
-    perm = perm.to(w.device)
+    """w [..., 4 Hd] -> [..., len(perm)] in gate_perm order, zero padding;
+    `perm` on w's device."""
     return torch.where(perm >= 0, w[..., perm.clamp(min=0)], torch.zeros((), dtype=w.dtype,
                                                                           device=w.device))
 
@@ -83,7 +96,7 @@ def pack_pre_weights(decoder_params, dtype) -> torch.Tensor:
     three products of the bf16 kernel's first launch."""
     p = decoder_params
     hd, e_dim = p.lstm.hidden_dim, p.embed.shape[1]
-    perm = gate_perm(hd)
+    perm = gate_perm(hd, p.lstm.whh.device)
     wq = p.attn.wq.float()
     from_h = torch.cat([wq, p.w_gate[:hd].float(), _permute_gates(p.lstm.whh.float(), perm)], 1)
     from_e = torch.cat([
@@ -99,7 +112,7 @@ def pack_cell_weights(decoder_params, dtype) -> tuple[torch.Tensor, torch.Tensor
     the guide's LSTM input weight and the LSTM bias in gate_perm order."""
     p = decoder_params
     e_dim = p.embed.shape[1]
-    perm = gate_perm(p.lstm.hidden_dim)
+    perm = gate_perm(p.lstm.hidden_dim, p.lstm.wih.device)
     w = _permute_gates(p.lstm.wih[e_dim:].float(), perm).t()
     g = w.shape[1]
     return (F.pad(w, (0, _round_up(g, 8) - g)).to(dtype).contiguous(),

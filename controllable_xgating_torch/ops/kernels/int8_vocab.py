@@ -18,6 +18,8 @@ columns. Any depth K is taken: x gets zero columns up to a multiple of 8
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -41,10 +43,20 @@ def int8_vocab_weights(wq: torch.Tensor) -> torch.Tensor:
     16-deep chunks' bytes of one thread (q = lane % 4) lie together."""
     k, vpad = wq.shape
     kp = -(-k // 64) * 64
-    p = torch.arange(64)
-    src = 16 * ((p % 16) // 4) + 8 * ((p % 4) // 2) + 2 * (p // 16) + p % 2
     w = F.pad(wq.t(), (0, kp - k)).reshape(vpad, kp // 64, 64)
-    return w[:, :, src.to(wq.device)].reshape(vpad, kp).contiguous()
+    return w[:, :, _fragment_order(wq.device)].reshape(vpad, kp).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _fragment_order(device: torch.device) -> torch.Tensor:
+    """The source k of each byte of a 64-byte K block, made once for each
+    device, on it: the operand is made with no copy in from the host, so
+    a loop's set-up can be captured in a CUDA graph (`infer/graphs.py`)."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the fragment order is first made outside a CUDA graph capture")
+    with torch.inference_mode(False), torch.no_grad():
+        p = torch.arange(64, device=device)
+        return 16 * ((p % 16) // 4) + 8 * ((p % 4) // 2) + 2 * (p // 16) + p % 2
 
 
 def x_operand(x: torch.Tensor) -> torch.Tensor:

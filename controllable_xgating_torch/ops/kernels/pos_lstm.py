@@ -55,7 +55,7 @@ def pack_pos_weights(pos_params, dtype) -> torch.Tensor:
     kernel reads one tile of e or of h."""
     p = pos_params
     e_dim, hd = p.embed.shape[1], p.lstm.hidden_dim
-    perm = gate_perm(hd)
+    perm = gate_perm(hd, p.lstm.wih.device)
     we = _permute_gates(p.lstm.wih[:e_dim].float(), perm).t()
     wh = _permute_gates(p.lstm.whh.float(), perm).t()
     return torch.cat([F.pad(we, (0, _round_up(e_dim, 64) - e_dim)),
@@ -66,7 +66,8 @@ def pack_pos_addend(s_gates: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """s_gates + b [B, 4H] f32 in gate_perm order [B, 4H'], zero for a
     padding unit: what the bf16 kernel adds to its products, made once per
     rollout."""
-    return _permute_gates(s_gates.float() + b.float(), gate_perm(b.shape[0] // 4)).contiguous()
+    return _permute_gates(s_gates.float() + b.float(),
+                          gate_perm(b.shape[0] // 4, b.device)).contiguous()
 
 
 def pos_lstm_weights(pos_params) -> PosLstmWeights:

@@ -10,15 +10,20 @@ architectures and the POS rollout must give JAX's tokens and tags exactly,
 under `early_stop=True` (JAX's while loop) and against its scan, at
 lengths 4 does not divide; scores and psi within rtol 1e-5, atol 1e-6.
 Then the cache key, the launch accounting on fake counters, the runner's
-early exit, and that the CPU never takes graphs.
+early exit, that the CPU never takes graphs, and that every loop's set-up
+and finish, which the card captures as graphs, read no device value on
+the host and copy nothing in from another device (on the meta device).
 """
 
+import copy
 from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from controllable_xgating_tpu.infer import beam as j_beam
 from controllable_xgating_tpu.infer import ensemble as j_ens
@@ -36,6 +41,7 @@ from controllable_xgating_torch.infer import greedy as t_greedy
 from controllable_xgating_torch.models import captioner as t_cap
 from controllable_xgating_torch.models import pos_generator as t_pos
 from controllable_xgating_torch.models.decoder import DecodeContext
+from controllable_xgating_torch.models.encoder import BiLstmLoop
 from controllable_xgating_torch.ops import kernels
 from controllable_xgating_torch.ops.dispatch import set_decode_graphs, set_fused_kernels
 from controllable_xgating_torch.ops.precision import precision
@@ -415,6 +421,123 @@ def test_copy_tree_refuses_other_shapes():
             graphs.copy_tree(dst, bad)
 
 
+# --- the set-up and finish a capture holds ---
+
+
+class HostReadsOrCopiesIn(TorchDispatchMode):
+    """Fails on a device value read on the host (`aten._local_scalar_dense`:
+    `.item()`, `bool()`, `int()` of a tensor) and on a tensor of another
+    device copied into one on `device`: a copy (`.to`, `copy_`) of any
+    tensor, or a non-scalar operand of another op (an index tensor). A CUDA
+    graph's capture holds neither. A 0-dim CPU tensor beside tensors on
+    the device is a wrapped Python number, which no copy moves."""
+
+    COPIES = {torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default,
+              torch.ops.aten.copy.default}
+
+    def __init__(self, device):
+        super().__init__()
+        self.device = torch.device(device)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise AssertionError("a device value read on the host")
+        out = func(*args, **kwargs)
+        leaves = lambda x: [t for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
+        if any(t.device == self.device for t in leaves(out)):
+            for t in leaves((args, kwargs)):
+                if t.device != self.device and (func in self.COPIES or t.dim() > 0):
+                    raise AssertionError(f"{func} copies a {t.device} tensor {tuple(t.shape)} in")
+        return out
+
+
+def on_meta(x):
+    """A module deep-copied onto the meta device, or a tree of tensors moved
+    there: shapes without values, where a host read cannot pass."""
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x).to("meta")
+    return graphs.map_tree(lambda t: t.to("meta"), x)
+
+
+SETUP_LOOPS = ["beam-lanes", "beam-grouped", "beam-flat", "beam-vocab_q", "beam-ensemble",
+               "beam-diverse", "greedy", "greedy-lanes", "ensemble_greedy", "pos", "bilstm"]
+
+
+def meta_loop(m, name: str):
+    """The loop `name` of the kernel path on the meta device, built as its
+    decode function builds it (the module's encoding, of 3 videos)."""
+    tp, ep = on_meta(m.tp), [on_meta(p) for p in m.et[:2]]
+    ctx, s = on_meta(m.tctx), on_meta(m.tsum)
+    enc = [on_meta(t_cap.encode_for_inference(p, *m.et_in, max_pos_len=MAX_POS)[:2])
+           for p in m.et[:2]]
+    beam = lambda k=5, mode="auto", vq=None, groups=0: t_beam.BeamLoop(
+        (tp.decoder,), (ctx,), (s,), k, 9, 1.0, True, False, mode, True, vq, 0, groups, 0.5)
+    return {
+        "beam-lanes": lambda: beam(mode="lanes"),
+        "beam-grouped": lambda: beam(mode="grouped"),
+        "beam-flat": lambda: beam(mode="flat"),
+        "beam-vocab_q": lambda: beam(vq=on_meta(m.tq)),
+        "beam-ensemble": lambda: t_beam.BeamLoop(
+            tuple(p.decoder for p in ep), tuple(e[0] for e in enc), tuple(e[1] for e in enc),
+            4, 9, 0.0, True, False, "auto", True, None, 2, 0, 0.5),
+        "beam-diverse": lambda: beam(k=6, groups=3),
+        "greedy": lambda: t_greedy.RolloutLoop(tp.decoder, ctx, s, 9, None, 1.0, True, False,
+                                               None, None),
+        "greedy-lanes": lambda: t_greedy.RolloutLoop(tp.decoder, ctx, s, 9, None, 1.0, True,
+                                                     False, None, True),
+        "ensemble_greedy": lambda: t_ens.EnsembleGreedyLoop(
+            tuple(p.decoder for p in ep), tuple(e[0] for e in enc), tuple(e[1] for e in enc), 9,
+            False, True),
+        "pos": lambda: t_pos.PosRolloutLoop(tp.pos, s, 9, True),
+        "bilstm": lambda: BiLstmLoop(
+            tp.encoder, torch.zeros((3, 5, tp.encoder.lstm_fwd.wih.shape[0]), device="meta"),
+            on_meta(m.t_in[2])),
+    }[name]()
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", SETUP_LOOPS)
+def test_setup_and_finish_read_nothing_on_the_host(m, name, policy):
+    """Every loop kind's `prepare`, `bind`, `init` and `finish` on the
+    kernel path, as the graphs' prologue and epilogue capture them, read no
+    device value on the host and copy no tensor in from another device (a
+    permutation or index made on the host): run on the meta device under a
+    dispatch mode that fails on either."""
+    with precision(policy):
+        loop = meta_loop(m, name)
+        assert loop.device.type == "meta"
+        with HostReadsOrCopiesIn("meta"):
+            carry = graphs._setup(loop)
+            loop.finish(carry)
+    assert graphs.tensors_of(carry) and all(t.device.type == "meta"
+                                            for t in graphs.tensors_of(carry))
+
+
+@pytest.mark.parametrize("hd", [6, 64, 512])
+def test_gate_perm_is_made_once_on_each_device(hd):
+    """`gate_perm` is one tensor for each (hd, device), made on that
+    device, equal to the permutation's definition; packing the POS
+    rollout's addend on another device copies nothing in."""
+    from controllable_xgating_torch.ops.kernels.attn_lstm import gate_perm
+    from controllable_xgating_torch.ops.kernels.pos_lstm import pack_pos_addend
+
+    p = torch.arange(4 * (-(-hd // 4) * 4))
+    w = p % 16
+    unit, gate = 4 * (p // 16) + (w % 8) // 2, w % 2 + 2 * (w // 8)
+    want = torch.where(unit < hd, gate * hd + unit, torch.full_like(p, -1))
+    cpu = gate_perm(hd)
+    assert torch.equal(cpu, want) and cpu.device.type == "cpu"
+    assert gate_perm(hd, "cpu") is cpu and gate_perm(hd, torch.device("cpu")) is cpu
+    with HostReadsOrCopiesIn("meta"):
+        meta = gate_perm(hd, "meta")
+        out = pack_pos_addend(torch.zeros((3, 4 * hd), device="meta"),
+                              torch.zeros(4 * hd, device="meta"))
+    assert meta.device.type == "meta" and meta.shape == want.shape
+    assert gate_perm(hd, torch.device("meta")) is meta
+    assert out.shape == (3, len(want))
+
+
 # --- keys held for a serving engine's life ---
 
 
@@ -447,10 +570,10 @@ def test_held_keys_are_never_evicted(monkeypatch):
     replay are stubbed: the CPU has no CUDA graphs."""
     captured = []
 
-    def capture(loop, inp, spans):
+    def capture(loop, spans):
         captured.append(loop.i)
-        loop.bind(inp)
-        return SimpleNamespace(loop=loop, carry={}, spans=[], capture_s=0.0, pool_bytes=0)
+        return SimpleNamespace(loop=loop, carry={}, spans=[], capture_s=0.0, pool_bytes=0,
+                               setup=lambda: None, finish=lambda: loop.finish({}))
 
     monkeypatch.setattr(graphs, "resolve_mode", lambda *a: "graphs")
     monkeypatch.setattr(graphs, "_capture", capture)

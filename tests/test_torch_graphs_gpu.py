@@ -14,7 +14,8 @@ on a replay; a call on other inputs equals eager (the static buffers are
 refreshed); after an in-place update of every parameter graphed equals
 eager on the new weights (the kernels' weight operands are made again on
 every call); a parameter swapped for a new tensor makes a new key; a
-call counts the kernel launches the eager call counts. A capture that
+call counts the kernel launches the eager call counts; every call after a
+key's capture replays its set-up (`graphs.setups.<kind>`). A capture that
 fails raises and caches nothing. This file imports no jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_gpu.py
@@ -299,6 +300,35 @@ def test_graphs_follow_the_switch_and_the_lru(dev):
                                   for t in x), True)
     info = graphs.cache_info()
     assert len(info) == graphs.MAX_KEYS and all(e["pool_bytes"] >= 0 for e in info)
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_every_call_after_a_capture_replays_its_setup(dev, policy):
+    """Four beam caption calls and two greedy ones, each running its
+    loops graphed (the BiLSTM, the POS rollout, the decode): for every
+    kind, `graphs.setups.<kind>` (set-ups replayed from a prologue) is
+    the calls (`<kind>.setup` spans) minus the captures, and each kind
+    captured once; the replayed calls give the capturing call's tokens."""
+    from controllable_xgating_torch.infer.beam import make_beam_caption_fn
+    from controllable_xgating_torch.infer.evaluator import make_greedy_caption_fn
+    from controllable_xgating_torch.utils import spans
+
+    p, x = model(dev), inputs(dev)
+    with precision(policy):
+        beam = make_beam_caption_fn(5, MAX_POS, MAX_LEN, fused=True)
+        greedy = make_greedy_caption_fn(MAX_POS, MAX_LEN, fused=True)
+        with spans.collect() as col:
+            outs = [beam(p, *x)[0] for _ in range(4)] + [greedy(p, *x)[0] for _ in range(2)]
+            torch.cuda.synchronize()
+    got = col.summary()
+    counters, calls = got["counters"], {n[:-len(".setup")]: s["n"] for n, s in
+                                        got["spans"].items() if n.endswith(".setup")}
+    assert calls == {"bilstm": 6, "pos": 6, "beam": 4, "greedy": 2}, calls
+    for kind, n in calls.items():
+        captures = counters.get(f"graphs.captures.{kind}", 0)
+        assert captures == 1 and counters.get(f"graphs.setups.{kind}", 0) == n - captures, \
+            (kind, counters)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:4]) and torch.equal(outs[5], outs[4])
 
 
 def test_a_failed_capture_raises_and_caches_nothing(dev, monkeypatch):

@@ -414,6 +414,47 @@ def test_graphed_equals_eager_at_msrvtt_width(msrvtt, path, policy):
         assert launches == eager and any(eager.values()), (launches, eager)
 
 
+# kernel launches a warm beam-5 caption call makes outside its graphs' launches:
+# K1, the summary, the decode context, the raw inputs' copies and the outputs' clones
+MAX_EAGER_LAUNCHES = 64
+KERNEL_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                       "cuLaunchKernelEx"}
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_warm_beam_call_launches_little_outside_its_graphs(msrvtt, policy):
+    """A warm beam-5 caption call over the 256 videos, profiled: its three
+    loops (the BiLSTM, the POS rollout, the decode) each replay a prologue,
+    their chunks and an epilogue, so that the host's own kernel launches
+    (runtime calls, `KERNEL_LAUNCH_CALLS`) are at most
+    MAX_EAGER_LAUNCHES, against the graph launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from controllable_xgating_torch.utils import spans
+
+    m = msrvtt
+    with precision(policy):
+        fn = caption_fn(True)
+        for _ in range(2):
+            fn(m.params, *m.x)
+        torch.cuda.synchronize()
+        with spans.collect() as col, profile(activities=[ProfilerActivity.CPU,
+                                                          ProfilerActivity.CUDA]) as prof:
+            fn(m.params, *m.x)
+            torch.cuda.synchronize()
+    counters = col.summary()["counters"]
+    names = [e.name for e in prof.events()]
+    eager = sum(n in KERNEL_LAUNCH_CALLS for n in names)
+    graph_launches = names.count("cudaGraphLaunch")
+    chunks = sum(v for k, v in counters.items() if k.startswith("graphs.replays."))
+    print(f"{policy}: {eager} kernel launches outside graphs, {graph_launches} graph launches, "
+          f"{chunks} chunks")
+    assert not any(k.startswith("graphs.captures.") for k in counters), counters
+    assert all(counters.get(f"graphs.setups.{k}") == 1 for k in ("bilstm", "pos", "beam"))
+    assert graph_launches == chunks + 2 * 3, (graph_launches, chunks)
+    assert 0 < eager <= MAX_EAGER_LAUNCHES, eager
+
+
 def test_mesh_eval(msrvtt):
     """`evaluate_split` over a mesh of two entries (two cards, or the one
     card twice): K1 once a block, K2-K4 launched, finite metrics; each

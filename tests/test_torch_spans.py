@@ -250,13 +250,16 @@ def test_loops_count_chunks_and_keep_their_spans(mode, early_stop):
 
 
 def test_graphed_loop_counts_a_capture_then_replays(monkeypatch):
-    """The graphs' path (capture and replay stubbed: the CPU has none):
+    """The graphs' path (capture and replays stubbed: the CPU has none):
     one capture span and count at a key's first sight, inside the setup
-    span; none on the next call; chunks replayed and waited on."""
-    def capture(loop, inp, chunks):
-        loop.bind(inp)
-        return SimpleNamespace(loop=loop, carry=loop.init(), spans=chunks, capture_s=0.0,
-                               pool_bytes=0)
+    span; on the next call none, and one set-up replayed from the
+    prologue; chunks replayed and waited on."""
+    def capture(loop, chunks):
+        loop.bind(loop.prepare())
+        carry = loop.init()
+        return SimpleNamespace(loop=loop, carry=carry, spans=chunks, capture_s=0.0,
+                               pool_bytes=0, setup=lambda: None,
+                               finish=lambda: loop.finish(carry))
 
     def replay(entry, early_stop):
         for _ in entry.spans:
@@ -280,8 +283,8 @@ def test_graphed_loop_counts_a_capture_then_replays(monkeypatch):
         graphs.clear()
     assert first["counters"] == {"graphs.captures.countdown": 1,
                                  "graphs.replays.countdown": 2, "graphs.chunks_of.countdown": 2}
-    assert second["counters"] == {"graphs.replays.countdown": 2,
-                                  "graphs.chunks_of.countdown": 2}
+    assert second["counters"] == {"graphs.setups.countdown": 1,
+                                  "graphs.replays.countdown": 2, "graphs.chunks_of.countdown": 2}
     assert first["spans"]["countdown.capture"]["n"] == 1
     assert "countdown.capture" not in second["spans"]
     assert first["spans"]["countdown.setup"]["self_ms"] < first["spans"]["countdown.setup"][
