@@ -101,7 +101,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = lane; c < a; c += 32)
       s += tanhf(sQ[r * a + c] + to_f32(kr[c]) + battn[c]) * to_f32(v[c]);
     s = warp_sum(s);
-    if (lane == 0) sAl[r * t4 + tt] = mask[(size_t)(r0 + r) * t + tt] > 0.0f ? s : kNegInf;
+    if (lane == 0)
+      sAl[r * t4 + tt] = !mask || mask[(size_t)(r0 + r) * t + tt] > 0.0f ? s : kNegInf;
   }
   __syncthreads();
   // masked softmax over frames: one warp per row
@@ -359,7 +360,7 @@ __global__ void __launch_bounds__(kAttnThreads)
     for (int f = 0; f < kAttnFrames; ++f) {
       const float sum = warp_sum(sf[f]);
       if (lane == 0 && t0 + f < t)
-        sc[t0 + f] = mask[(size_t)r * t + t0 + f] > 0.0f ? sum : kNegInf;
+        sc[t0 + f] = !mask || mask[(size_t)r * t + t0 + f] > 0.0f ? sum : kNegInf;
     }
   }
   __syncthreads();
@@ -436,7 +437,8 @@ __global__ void __launch_bounds__(hop::kThreads)
                      const __grid_constant__ CUtensorMap map_w, const float* __restrict__ pre,
                      int ldp, int off, const float* __restrict__ b_cell,
                      const float* __restrict__ c, float* __restrict__ h_out,
-                     float* __restrict__ c_out, int rows, int hidden, int n_cell, int g) {
+                     float* __restrict__ c_out, __nv_bfloat16* __restrict__ h_op, int ld_op,
+                     int rows, int hidden, int n_cell, int g) {
   constexpr int kBlocks = hop::kTileN / 16;  // 16-column blocks of 4 units
   const int m0 = blockIdx.y * hop::kTileM, n0 = blockIdx.x * hop::kTileN;
   const int q = threadIdx.x & 3;
@@ -471,8 +473,10 @@ __global__ void __launch_bounds__(hop::kThreads)
       const float og = sigmoid_f32(acc[i1 + 1]);
       const size_t o = (size_t)r * hidden + u;
       const float c_new = fg * c_old[rs][blk] + ig * gg;
+      const float h_new = og * tanhf(c_new);
       c_out[o] = c_new;
-      h_out[o] = og * tanhf(c_new);
+      h_out[o] = h_new;
+      if (h_op) h_op[(size_t)r * ld_op + u] = __float2bfloat16(h_new);
     }
   }
 }
@@ -484,8 +488,9 @@ cudaError_t launch_attn_lstm_bf16(const void* x, const void* w_pre, float* pre, 
                                   const void* encp, const void* psi, const float* mask,
                                   const float* battn, const void* v, const float* bg, void* guide,
                                   const void* w_cell, const float* b_cell, const float* c,
-                                  float* h_out, float* c_out, float* alpha, int rows, int hd,
-                                  int ed, int t, int a, int g, cudaStream_t st) {
+                                  float* h_out, float* c_out, float* alpha, void* h_op,
+                                  int ld_op, int rows, int hd, int ed, int t, int a, int g,
+                                  cudaStream_t st) {
   using bf16 = __nv_bfloat16;
   const int kx = hd + ed, kxp = round_up(kx, 8), gp = round_up(g, 8);
   const int n_cell = 4 * round_up(hd, 4), n_pre = a + g + n_cell;
@@ -516,14 +521,16 @@ cudaError_t launch_attn_lstm_bf16(const void* x, const void* w_pre, float* pre, 
   if (err != cudaSuccess) return err;
   cell_gemm_kernel<<<dim3(n_cell / hop::kTileN + (n_cell % hop::kTileN != 0), mtiles),
                      hop::kThreads, cell_smem, st>>>(map_g, map_wc, pre, n_pre, a + g, b_cell, c,
-                                                h_out, c_out, rows, hd, n_cell, g);
+                                                h_out, c_out, (bf16*)h_op, ld_op, rows, hd,
+                                                n_cell, g);
   return cudaGetLastError();
 }
 
 }  // namespace cxg
 
 // The f32 policy's path: h, e, keys, enc_proj, psi_g, the weights, c,
-// mask, the biases and all outputs f32; guide is a [rows, g] f32 scratch.
+// mask (null: every frame live), the biases and all outputs f32; guide is
+// a [rows, g] f32 scratch.
 // Returns a cudaError_t.
 extern "C" int cxg_attn_lstm_fwd(const void* h, const void* c, const void* e, const void* keys,
                                  const void* encp, const void* psi, const void* mask,
@@ -548,20 +555,23 @@ extern "C" long cxg_attn_smem_bytes(int t, int a, int g) {
 // bf16 (the kernel writes guide; its padding is never read), pre [rows,
 // n_pre] an f32 scratch, w_pre [n_pre, kxp] and w_cell [4 h4, gp] the
 // packed K-major weights, b_cell [4 h4] f32 in w_cell's column order; keys,
-// enc_proj, psi_g and v bf16; c, mask, b_attn, b_gate and all outputs f32.
-// Returns a cudaError_t.
+// enc_proj, psi_g and v bf16; c, mask (null: every frame live), b_attn,
+// b_gate and h_out, c_out,
+// alpha f32. h_op, where not null, takes h' in bf16 too, rows ld_op apart
+// (the top-K kernels' h operand; its columns past hd are left as they
+// are). Returns a cudaError_t.
 extern "C" int cxg_attn_lstm_bf16_fwd(const void* x, const void* w_pre, void* pre,
                                       const void* keys, const void* encp, const void* psi,
                                       const void* mask, const void* battn, const void* v,
                                       const void* bg, void* guide, const void* w_cell,
                                       const void* b_cell, const void* c, void* h_out,
-                                      void* c_out, void* alpha, int rows, int hd, int ed, int t,
-                                      int a, int g, void* stream) {
+                                      void* c_out, void* alpha, void* h_op, int rows, int hd,
+                                      int ed, int t, int a, int g, int ld_op, void* stream) {
   auto f = [](const void* p) { return (const float*)p; };
   return (int)cxg::launch_attn_lstm_bf16(x, w_pre, (float*)pre, keys, encp, psi, f(mask),
                                          f(battn), v, f(bg), guide, w_cell, f(b_cell), f(c),
-                                         (float*)h_out, (float*)c_out, (float*)alpha, rows, hd, ed,
-                                         t, a, g, (cudaStream_t)stream);
+                                         (float*)h_out, (float*)c_out, (float*)alpha, h_op, ld_op,
+                                         rows, hd, ed, t, a, g, (cudaStream_t)stream);
 }
 
 // shared memory the bf16 path needs a block to have (the attention

@@ -21,8 +21,9 @@
 // per row, and the beam tail's merge kernel (topk_tail.cu) combines the
 // chunks.
 //
-// bf16 policy, topk_extract_wgmma_kernel: a chunk is 128 vocab columns of
-// a 128-row tile of hopper_gemm.cuh's streamed_tile (h [R, Hd] and
+// bf16 policy, topk_extract_wgmma_kernel, on the chunk stage it shares with
+// K4's chunk kernel (topk.cuh's chunk_logits): a chunk is 128 vocab
+// columns of a 128-row tile of hopper_gemm.cuh's streamed_tile (h [R, Hd] and
 // w_out^T [V, Hd], both K-major, through a 3-stage TMA ring into wgmma
 // m64n128; two warpgroups of 64 rows share each w tile). The chunk's
 // logits are the accumulator itself: each row's 128 columns lie in one
@@ -41,9 +42,6 @@
 // shared memory (128 KB); each warp then takes 4 rows: an online (max,
 // sum-exp) over each lane's columns and k rounds of warp arg-max
 // extraction, under the same eligibility rule.
-#include "hopper_gemm.cuh"
-
-#include <type_traits>
 #include "topk.cuh"
 
 namespace cxg {
@@ -140,49 +138,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kTxWgs = 2;     // warpgroups a block: 128 rows x 128 columns
-constexpr int kTxStages = 3;  // 97 KB: two blocks an SM
-constexpr int kTxRowsPerBlock = kTxWgs * hop::kTileM;
-
 // bf16 policy: h [rows, hd] and w_t = w_out^T [v, hd] through TMA
 // descriptors (hd % 8 == 0); chunk = blockIdx.x covers vocab columns
-// [128 chunk, 128 chunk + 128), warpgroup wg rows m0 + 64 wg .. + 63.
+// [128 chunk, 128 chunk + 128) of rows m0 .. m0 + 127 (chunk_logits, the
+// stage K4's chunk kernel runs too), warpgroup wg rows m0 + 64 wg .. + 63.
 template <int K>
-__global__ void __launch_bounds__(kTxWgs * hop::kThreads)
+__global__ void __launch_bounds__(kChunkThreads)
     topk_extract_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
                               const __grid_constant__ CUtensorMap map_w,
                               const float* __restrict__ b, float* __restrict__ cand_v,
                               int* __restrict__ cand_i, float* __restrict__ part_m,
                               float* __restrict__ part_s, int rows, int hd, int v) {
   const int chunk = blockIdx.x, nchunks = gridDim.x;
-  const int m0 = blockIdx.y * kTxRowsPerBlock, n0 = chunk * hop::kTileN;
+  const int m0 = blockIdx.y * kChunkRows, n0 = chunk * hop::kTileN;
   const int mw = m0 + (threadIdx.x / hop::kThreads) * hop::kTileM;
-  float acc[64];
-  hop::streamed_tile<kTxStages, kTxWgs>(acc, &map_h, &map_w, m0, n0, hd, false);
-
-  // the logits in place: -1e30 at the specials, -inf past the vocab (never
-  // a winner while a real column is left); the row maxima without specials
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int col = n0 + hop::acc_col(i);
-    float x = -INFINITY;
-    if (col < v) {
-      const bool special = col == kPad || col == kBos;
-      x = special ? kMaskNeg : acc[i] + b[col];
-      if (!special) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-    }
-    acc[i] = x;
-  }
-  // (max, sum-exp) of each row over the chunk: quad max, then one pass
-  float m[2], s[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) m[r] = quad_max(mx[r]);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int r = (i >> 1) & 1, col = n0 + hop::acc_col(i);
-    if (col != kPad && col != kBos && m[r] > -INFINITY) s[r] += expf(acc[i] - m[r]);
-  }
+  float acc[64], m[2], s[2];
+  chunk_logits(acc, m, s, &map_h, &map_w, b, m0, n0, hd, v, 0);
 
   // K rounds of extraction: the best eligible (value desc, column asc) of
   // each row; a thread visits a row's columns in ascending order, so a
@@ -218,8 +189,6 @@ __global__ void __launch_bounds__(kTxWgs * hop::kThreads)
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    s[r] += __shfl_xor_sync(kFull, s[r], 1);
-    s[r] += __shfl_xor_sync(kFull, s[r], 2);
     const int row = mw + hop::acc_row(2 * r);
     if ((lane & 3) == 0 && row < rows) {
       part_m[(size_t)row * nchunks + chunk] = m[r];
@@ -246,32 +215,21 @@ cudaError_t launch_topk_extract_bf16(const void* h, const void* w_t, const float
                                      int rows, int hd, int v, int k, int nchunks,
                                      cudaStream_t st) {
   CUtensorMap map_h, map_w;
-  cudaError_t err = hop::make_tmap(&map_h, h, rows, hd, hd, kTxRowsPerBlock);
+  cudaError_t err = hop::make_tmap(&map_h, h, rows, hd, hd, kChunkRows);
   if (err == cudaSuccess) err = hop::make_tmap(&map_w, w_t, v, hd, hd, hop::kTileN);
   if (err != cudaSuccess) return err;
-  const int smem = (int)hop::streamed_smem_bytes(kTxStages, kTxWgs);
-  const dim3 grid(nchunks, (rows + kTxRowsPerBlock - 1) / kTxRowsPerBlock);
+  const int smem = (int)hop::streamed_smem_bytes(kChunkStages, kChunkWgs);
+  const dim3 grid(nchunks, (rows + kChunkRows - 1) / kChunkRows);
   auto launch = [&](auto kc) -> cudaError_t {  // one instantiation per K
     constexpr int K = decltype(kc)::value;
     static hop::SmemLimits smem_set;
     const cudaError_t e = hop::allow_smem(topk_extract_wgmma_kernel<K>, smem, smem_set);
     if (e != cudaSuccess) return e;
-    topk_extract_wgmma_kernel<K><<<grid, kTxWgs * hop::kThreads, smem, st>>>(
+    topk_extract_wgmma_kernel<K><<<grid, kChunkThreads, smem, st>>>(
         map_h, map_w, b, cand_v, cand_i, part_m, part_s, rows, hd, v);
     return cudaGetLastError();
   };
-  using std::integral_constant;
-  switch (k) {
-    case 1: return launch(integral_constant<int, 1>{});
-    case 2: return launch(integral_constant<int, 2>{});
-    case 3: return launch(integral_constant<int, 3>{});
-    case 4: return launch(integral_constant<int, 4>{});
-    case 5: return launch(integral_constant<int, 5>{});
-    case 6: return launch(integral_constant<int, 6>{});
-    case 7: return launch(integral_constant<int, 7>{});
-    case 8: return launch(integral_constant<int, 8>{});
-  }
-  return cudaErrorInvalidValue;
+  return with_k(k, launch);
 }
 
 }  // namespace cxg

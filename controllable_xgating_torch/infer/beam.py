@@ -14,8 +14,11 @@ Counterpart of `controllable_xgating_tpu/infer/beam.py` (`beam_search`,
 
 Four candidate tails, output-identical up to float rounding of the scores
 (the JAX package's names): `"lanes"` takes the row-local top-K straight
-from the top-K kernel wrapper, which projects, masks and reduces without
-writing the [B*K, V] logits; the other three form the full log-softmax in
+from the top-K kernel, which projects, masks and reduces without writing
+the [B*K, V] logits, and on the card the step's selection and reorder
+follow in one more launch on the carry (`topk_tail.lanes_beam_step`;
+`lanes_select_plain` is its plain version); the other three form the
+full log-softmax in
 PyTorch: `"grouped"` takes a row-local top-K and merges the K*K survivors
 per video, `"block"` is grouped with the row stage prescreened by 128-wide
 block maxima (`row_topk_block`; the port's `topk` prescreens long rows
@@ -37,7 +40,9 @@ same reordering. Members of one architecture and of different ones take
 the same code: the JAX package keeps a stacked layout only to `vmap` it.
 Diverse beam search (`diversity_groups > 1`) splits the beam into groups
 that select in turn, each penalised by the tokens the earlier groups'
-live beams chose at this step.
+live beams chose at this step. Every tail's choice goes through the same
+merge of each video's K*K survivors and reorder
+(`topk_tail.merge_survivors`, `topk_tail.reorder_beams`).
 
 Every variant is one `BeamLoop`, split as the reference's scan and run
 through `infer/graphs.py`: replayed CUDA graphs on the card, an eager
@@ -50,7 +55,7 @@ from typing import Optional
 
 import torch
 
-from controllable_xgating_torch.data.vocab import BOS, EOS, PAD
+from controllable_xgating_torch.data.vocab import BOS, PAD
 from controllable_xgating_torch.experiments.int8_vocab_matmul import with_kernel_operand
 from controllable_xgating_torch.infer import graphs as decode_graphs
 from controllable_xgating_torch.infer.greedy import mask_special_tokens
@@ -62,20 +67,19 @@ from controllable_xgating_torch.models.decoder import (
 )
 from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_weights
 from controllable_xgating_torch.ops.kernels.topk_tail import (
+    NEG,
+    final_score,
+    gather_rows,
+    lanes_beam_step,
     lanes_fits,
+    lanes_select_plain,
     logits_topk,
+    merge_survivors,
+    reorder_beams,
     topk,
     topk_tail_weights,
 )
 from controllable_xgating_torch.utils.spans import span
-
-NEG_INF = -1e30
-
-
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x [B, K, ...] -> x[b, idx[b, j], ...] for idx [B, K]."""
-    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
-
 
 def row_topk_block(x: torch.Tensor, k: int):
     """Exact per-row top-k by a block-max prescreen (JAX `row_topk_block`):
@@ -143,10 +147,9 @@ class BeamLoop(decode_graphs.StepLoop):
 
     def bind(self, inp: dict) -> None:
         super().bind(inp)
-        dev, k = self.device, self.k
+        dev = self.device
         # a finished row's candidates: the PAD continuation at zero cost
-        self.cont = torch.where(torch.arange(self.v, device=dev) == PAD, 0.0, NEG_INF)
-        self.cont_v, self.cont_i = topk(self.cont, k)
+        self.cont = torch.where(torch.arange(self.v, device=dev) == PAD, 0.0, NEG)
         self.rows = torch.arange(self.sums[0].shape[0], device=dev)
 
     def init(self) -> dict:
@@ -158,93 +161,56 @@ class BeamLoop(decode_graphs.StepLoop):
         kg = k // self.groups if self.groups > 1 else k
         return dict(
             h=h, c=c, tok=torch.full((b, k), BOS, dtype=torch.long, device=dev),
-            cum=torch.where(torch.arange(k, device=dev) % kg == 0, 0.0, NEG_INF).repeat(b, 1),
+            cum=torch.where(torch.arange(k, device=dev) % kg == 0, 0.0, NEG).repeat(b, 1),
             finished=torch.zeros((b, k), dtype=torch.bool, device=dev),
             lengths=torch.zeros((b, k), dtype=torch.long, device=dev),
             hist=torch.full((b, k, self.max_len), PAD, dtype=torch.long, device=dev),
-            reg_score=torch.full((b,), NEG_INF, device=dev),
+            reg_score=torch.full((b,), NEG, device=dev),
             reg_tokens=torch.full((b, self.max_len), PAD, dtype=torch.long, device=dev),
         )
 
-    def final_score(self, cum, lengths):
-        if self.length_penalty > 0.0:
-            return cum / ((5.0 + lengths.float()) / 6.0) ** self.length_penalty
-        return cum
-
     def step(self, carry: dict, t: int) -> None:
         inp, members, b, k, v = self.inp, self.members, self.rows.shape[0], self.k, self.v
-        cum, finished, rows = carry["cum"], carry["finished"], self.rows
-        fin_col = finished.reshape(b * k)[:, None]
         flat_tok = carry["tok"].reshape(b * k)
         if self.lanes:
-            h_out, h_new, c_new, _ = decode_step(
-                members[0], inp["ctx"][0], flat_tok, carry["h"][0], carry["c"][0],
-                fused=self.fused, return_hidden=True, kernel_weights=inp["kw"][0],
+            p = members[0]
+            h_op, h_new, c_new, _ = decode_step(
+                p, inp["ctx"][0], flat_tok, carry["h"][0], carry["c"][0], fused=self.fused,
+                return_hidden=True, kernel_weights=inp["kw"][0],
             )
-            h_new, c_new = [h_new], [c_new]
-            top_v, top_i, lse = logits_topk(
-                h_out, members[0].w_out, members[0].b_out, k, self.block_unk, inp["w_op"])
-            logp_k = top_v - lse[:, None]
-            s1_scores = cum.reshape(b * k)[:, None] + torch.where(fin_col, self.cont_v, logp_k)
-            s1_idx = torch.where(fin_col, self.cont_i, top_i)
+            if h_op.is_cuda:  # K4's chunk, then the step's selection and reorder in place
+                carry.update(lanes_beam_step(h_op, p.w_out, p.b_out, inp["w_op"], self.block_unk,
+                                             carry, t, h_new, c_new, self.length_penalty))
+            else:  # its plain version
+                carry.update(lanes_select_plain(
+                    carry, t, *logits_topk(h_op, p.w_out, p.b_out, k, self.block_unk, inp["w_op"]),
+                    h_new, c_new, self.length_penalty))
+            return
+        outs = [
+            decode_step(p, cx, flat_tok, hh, cc, fused=self.fused, kernel_weights=w,
+                        vocab_q=inp["vocab_q"])
+            for p, cx, hh, cc, w in zip(members, inp["ctx"], carry["h"], carry["c"], inp["kw"])
+        ]
+        if self.ens:
+            from controllable_xgating_torch.infer.ensemble import combine_logp
+
+            logp = combine_logp([o[0] for o in outs], self.block_unk)
         else:
-            outs = [
-                decode_step(p, cx, flat_tok, hh, cc, fused=self.fused, kernel_weights=w,
-                            vocab_q=inp["vocab_q"])
-                for p, cx, hh, cc, w in zip(members, inp["ctx"], carry["h"], carry["c"],
-                                            inp["kw"])
-            ]
-            h_new, c_new = [o[1] for o in outs], [o[2] for o in outs]
-            if self.ens:
-                from controllable_xgating_torch.infer.ensemble import combine_logp
-
-                logp = combine_logp([o[0] for o in outs], self.block_unk)
-            else:
-                logits = mask_special_tokens(outs[0][0].float(), self.block_unk)
-                logp = torch.log_softmax(logits, -1)
-            logp = torch.where(fin_col, self.cont, logp)
-            cand = cum.reshape(b * k)[:, None] + logp  # [B*K, V]
-            if self.groups > 1:
-                top_scores, beam_idx, new_tok = _diverse_select(
-                    cand.reshape(b, k, v), finished, self.groups, self.diversity_penalty)
-            elif self.topk_mode == "flat":
-                top_scores, top_idx = topk(cand.reshape(b, k * v), k)  # [B, K]
-                beam_idx, new_tok = top_idx // v, top_idx % v
-            else:
-                s1_scores, s1_idx = (row_topk_block if self.topk_mode == "block" else topk)(cand, k)
-        if self.groups <= 1 and self.topk_mode != "flat":
-            # merge the K*K survivors per video
-            top_scores, m_idx = topk(s1_scores.reshape(b, k * k), k)  # [B, K]
-            beam_idx = m_idx // k
-            new_tok = torch.gather(s1_idx.reshape(b, k * k), 1, m_idx)
-
-        finished_g = torch.gather(finished, 1, beam_idx)
-        lengths_g = torch.gather(carry["lengths"], 1, beam_idx)
-        hist = _gather_rows(carry["hist"], beam_idx)
+            logp = torch.log_softmax(mask_special_tokens(outs[0][0].float(), self.block_unk), -1)
+        fin_col = carry["finished"].reshape(b * k)[:, None]
+        cand = carry["cum"].reshape(b * k)[:, None] + torch.where(fin_col, self.cont, logp)
+        if self.groups > 1:
+            picked = _diverse_select(cand.reshape(b, k, v), carry["finished"], self.groups,
+                                     self.diversity_penalty)
+        elif self.topk_mode == "flat":
+            top_scores, top_idx = topk(cand.reshape(b, k * v), k)  # [B, K]
+            picked = top_scores, top_idx // v, top_idx % v
+        else:
+            picked = merge_survivors(
+                *(row_topk_block if self.topk_mode == "block" else topk)(cand, k), k)
         # every member's state follows the same reordering
-        flat_src = (rows[:, None] * k + beam_idx).reshape(b * k)
-
-        now_finished = finished_g | (new_tok == EOS)
-        emit = torch.where(finished_g, torch.full_like(new_tok, PAD), new_tok)
-        hist[:, :, t] = emit
-        lengths = torch.where(finished_g, lengths_g, lengths_g + 1)
-
-        # best-finished register, from beams finishing this step
-        just_finished = now_finished & ~finished_g
-        cand = torch.where(
-            just_finished, self.final_score(top_scores, lengths),
-            torch.full_like(top_scores, NEG_INF),
-        )
-        row_best = torch.argmax(cand, dim=1)
-        row_score = cand[rows, row_best]
-        reg_score = carry["reg_score"]
-        improve = row_score > reg_score
-        carry.update(
-            h=[x[flat_src] for x in h_new], c=[x[flat_src] for x in c_new],
-            tok=emit, cum=top_scores, finished=now_finished, lengths=lengths, hist=hist,
-            reg_score=torch.where(improve, row_score, reg_score),
-            reg_tokens=torch.where(improve[:, None], hist[rows, row_best], carry["reg_tokens"]),
-        )
+        carry.update(reorder_beams(carry, t, *picked, [o[1] for o in outs],
+                                   [o[2] for o in outs], self.length_penalty))
 
     def done(self, carry: dict) -> torch.Tensor:
         return carry["finished"].all()
@@ -252,16 +218,16 @@ class BeamLoop(decode_graphs.StepLoop):
     def finish(self, carry: dict):
         hist, reg_score, reg_tokens, rows = (carry["hist"], carry["reg_score"],
                                              carry["reg_tokens"], self.rows)
-        final = self.final_score(carry["cum"], carry["lengths"])
+        final = final_score(carry["cum"], carry["lengths"], self.length_penalty)
         if self.return_all:
             dup = (hist == reg_tokens[:, None, :]).all(-1).any(1)  # [B]
             all_scores = torch.cat(
-                [final, torch.where(dup, torch.full_like(reg_score, NEG_INF), reg_score)[:, None]],
+                [final, torch.where(dup, torch.full_like(reg_score, NEG), reg_score)[:, None]],
                 dim=1,
             )
             all_hist = torch.cat([hist, reg_tokens[:, None, :]], dim=1)
             sorted_scores, order = topk(all_scores, self.k)
-            return _gather_rows(all_hist, order), sorted_scores
+            return gather_rows(all_hist, order), sorted_scores
         best = torch.argmax(final, dim=1)
         best_tokens = hist[rows, best]
         best_scores = final[rows, best]

@@ -132,7 +132,10 @@ def decode_step(
     attaches that kernel's K-major weight to it once (`with_kernel_operand`).
     `return_hidden=True` skips the vocab projection and returns h' in the
     logits slot, for a caller that fuses the projection into its own tail
-    (beam's top-K kernel); it wins over `vocab_q`."""
+    (beam's and greedy's top-K kernel); on the card under the kernels and
+    the bf16 policy that slot holds h' as the top-K kernel's operand
+    (`topk_tail.h_operand(h')`), which the decoder-step kernel writes
+    beside h'. It wins over `vocab_q`."""
 
     def project(h_out):
         if return_hidden:
@@ -147,10 +150,16 @@ def decode_step(
     if fused:
         from controllable_xgating_torch.ops.kernels.attn_lstm import attn_lstm_step_kernel
 
+        h_op = None
+        if return_hidden and h.device.type == "cuda" and compute_dtype() == torch.bfloat16:
+            from controllable_xgating_torch.ops.kernels.topk_tail import empty_h_operand
+
+            h_op = empty_h_operand(h.shape[0], h.shape[1], h.device)
         h_new, c_new, alpha = attn_lstm_step_kernel(
-            params, e, h, c, ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask, kernel_weights
+            params, e, h, c, ctx.keys, ctx.enc_proj, ctx.psi_g, ctx.frame_mask, kernel_weights,
+            h_op,
         )
-        return project(h_new), h_new, c_new, alpha
+        return project(h_new) if h_op is None else h_op, h_new, c_new, alpha
     h_new, c_new, alpha = _attend_gate_cell(params, ctx, e, h, c)
     return project(h_new), h_new, c_new, alpha
 

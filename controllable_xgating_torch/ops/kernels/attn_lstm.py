@@ -169,8 +169,14 @@ def attn_lstm_step_kernel(
     psi_g: torch.Tensor,      # [B, G]
     frame_mask=None,          # [B, T] or None
     weights: AttnLstmWeights | None = None,  # from attn_lstm_weights, else cast here
+    h_op: torch.Tensor | None = None,  # [B, >= Hd] bf16: takes h' too under bf16
 ):
-    """One decode step without the vocab projection. Returns (h', c', alpha)."""
+    """One decode step without the vocab projection. Returns (h', c', alpha).
+
+    Under the bf16 policy on the card, `h_op` (where given) takes h' in
+    bf16 as well, written by the kernel beside h' (its columns past Hd are
+    left as they are): the top-K kernels' h operand (`topk_tail.h_operand`)
+    with no cast of its own. Elsewhere it is left untouched."""
     if h.device.type == "cpu":
         return attn_lstm_step_plain(
             decoder_params, token_emb, h, c, keys, enc_proj, psi_g, frame_mask
@@ -183,8 +189,6 @@ def attn_lstm_step_kernel(
     e_dim = p.embed.shape[1]
     cast = lambda x: x.to(device=dev, dtype=cdt).contiguous()
     full = lambda x: x.to(device=dev, dtype=f32).contiguous()
-    if frame_mask is None:
-        frame_mask = torch.ones((b, t), dtype=f32, device=dev)
     w = attn_lstm_weights(p) if weights is None else weights
     h_out = torch.empty((b, hd), dtype=f32, device=dev)
     c_out = torch.empty((b, hd), dtype=f32, device=dev)
@@ -197,14 +201,16 @@ def attn_lstm_step_kernel(
     if smem > build.smem_limit(dev):
         raise ValueError(f"attn_lstm kernel: T={t}, A={a}, G={g} need {smem} B of shared memory")
     ops = dict(
-        c=full(c), keys=cast(keys), encp=cast(enc_proj), psi=cast(psi_g), mask=full(frame_mask),
+        c=full(c), keys=cast(keys), encp=cast(enc_proj), psi=cast(psi_g),
+        mask=None if frame_mask is None else full(frame_mask),  # None: every frame live
         **w._asdict(),
     )
     shapes = dict(
         c=((b, hd), f32), keys=((b, t, a), cdt), encp=((b, t, g), cdt), psi=((b, g), cdt),
         mask=((b, t), f32), battn=((a,), f32), v=((a,), cdt), bg=((g,), f32),
     )
-    check = lambda *names: [build.check(ops[n], n, *shapes[n], dev) for n in names]
+    check = lambda *names: [0 if ops[n] is None else build.check(ops[n], n, *shapes[n], dev)
+                            for n in names]
     outs = [
         build.check(h_out, "h_out", (b, hd), f32, dev),
         build.check(c_out, "c_out", (b, hd), f32, dev),
@@ -225,7 +231,14 @@ def attn_lstm_step_kernel(
         )
         ptrs = check("x", "w_pre", "pre", "keys", "encp", "psi", "mask", "battn", "v", "bg",
                      "guide", "w_cell", "b_cell", "c")
-        rc = build.launch(lib.cxg_attn_lstm_bf16_fwd, dev, *ptrs, *outs, b, hd, e_dim, t, a, g)
+        op = 0
+        if h_op is not None:
+            op = build.check(h_op, "h_op", (b, h_op.shape[1]), cdt, dev)
+            if h_op.shape[1] < hd:
+                raise ValueError(f"h_op: expected >= {hd} columns, got {h_op.shape[1]}")
+        ld_op = 0 if h_op is None else h_op.shape[1]
+        rc = build.launch(lib.cxg_attn_lstm_bf16_fwd, dev, *ptrs, *outs, op, b, hd, e_dim, t, a,
+                          g, ld_op)
     else:
         ops.update(h=cast(h), e=cast(token_emb), guide=torch.empty((b, g), dtype=cdt, device=dev))
         shapes.update(

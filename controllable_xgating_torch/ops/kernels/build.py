@@ -40,6 +40,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def build_dir() -> str:
@@ -109,8 +110,10 @@ _SIGNATURES = {
     "cxg_pos_lstm_bf16_fwd": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P],
     "cxg_pos_lstm_maps_bytes": [],
     "cxg_attn_lstm_fwd": [_P] * 21 + [_I] * 6 + [_P],
-    "cxg_attn_lstm_bf16_fwd": [_P] * 17 + [_I] * 6 + [_P],
+    "cxg_attn_lstm_bf16_fwd": [_P] * 18 + [_I] * 7 + [_P],
     "cxg_topk_tail_fwd": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "cxg_topk_tail_beam": [_I] + [_P] * 7 + [_I] * 6 + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 2
+                          + [_F, _P],
     "cxg_xent_fwd": [_P] * 5 + [_I] * 2 + [_P],
     "cxg_xent_bwd": [_P] * 7 + [_I] * 2 + [_P],
     "cxg_int8_vocab_fwd": [_P] * 5 + [_I] * 5 + [_P],

@@ -12,11 +12,11 @@ Counterpart of the Pallas kernel of `experiments/pallas_logits_topk.py`
 so its plain version is the beam tail's. The kernel differs in how it
 picks: k rounds of arg-max over each block's vocab chunk, the TPU
 kernel's algorithm, where the beam tail's lanes insert into sorted lists.
-Under the bf16 policy a chunk is the 128 columns of a 128-row wgmma tile
-and the rounds run on its accumulator registers, on the beam tail's
-K-major operand
-(`topk_tail_weights`: w_out^T, Hd padded with zero columns to a multiple
-of 8); under f32 a chunk is 1024 columns, its f32 logits in shared
+Under the bf16 policy a chunk is the 128 columns of a 128-row wgmma tile,
+the chunk stage the beam tail's kernel runs too (`csrc/topk.cuh`), and
+the rounds run on its accumulator registers, on the beam tail's K-major
+operand (`topk_tail_weights`: w_out^T, Hd padded with zero columns to a
+multiple of 8); under f32 a chunk is 1024 columns, its f32 logits in shared
 memory, on SIMT products.
 """
 
@@ -26,6 +26,7 @@ import torch
 
 from controllable_xgating_torch.ops.kernels import build
 from controllable_xgating_torch.ops.kernels.topk_tail import (
+    CHUNK_COLS_BF16,
     MAX_K,
     h_operand,
     logits_topk_plain,
@@ -35,7 +36,6 @@ from controllable_xgating_torch.ops.precision import compute_dtype
 from controllable_xgating_torch.utils.debug import nan_guard
 
 CHUNK_COLS = 1024  # f32: vocab columns per block, 128 KB of f32 logits for 32 rows
-CHUNK_COLS_BF16 = 128  # bf16: one wgmma tile's columns a block
 
 
 def logits_topk_extract_plain(h, w_out, b_out, k: int):

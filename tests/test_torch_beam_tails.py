@@ -6,18 +6,21 @@ Tokens must equal the JAX package's; scores, values and logsumexps are
 held at rtol 1e-5. Inputs are numpy draws handed to both packages.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from controllable_xgating_tpu.data.vocab import BOS, PAD
+from controllable_xgating_tpu.data.vocab import BOS, EOS, PAD
 from controllable_xgating_tpu.infer import beam as j_beam
 from controllable_xgating_torch.experiments.logits_topk import logits_topk_extract
 from controllable_xgating_torch.infer import beam as t_beam
 from controllable_xgating_torch.ops import kernels
 from controllable_xgating_torch.ops.kernels.topk_extract import logits_topk_extract_kernel
+from controllable_xgating_torch.ops.kernels.topk_tail import NEG
 from experiments.pallas_logits_topk import logits_topk_pallas
 from test_torch_quant import make_cfg, numpy_params
 
@@ -186,3 +189,99 @@ def test_logits_topk_extract_planted_ties():
     np.testing.assert_allclose(vals.numpy(), np.asarray(rv), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(rl), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), np.log(5 * np.e + (v - 7)), rtol=1e-6)
+
+
+def _forced_eos(tp, boost):
+    """A copy of the port's weights with EOS's bias raised by `boost`."""
+    p = copy.deepcopy(tp)
+    with torch.no_grad():
+        p.decoder.b_out[EOS] += boost
+    return p
+
+
+def _planted_step(v, k, seed=5):
+    """One lanes step's inputs at t = 2 over 3 videos: video 0's rows 0 and
+    1 live with equal cum and equal logits (every candidate of row 0 ties
+    one of row 1's), and two tokens tied at every row's top; video 1's
+    rows 0 and 1 finished; video 2 at its first step (row 0 live, the rest
+    at -1e30). Returns (carry, logits [3k, V], h_new, c_new)."""
+    b, hd, max_len, t = 3, 6, 5, 2
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(b * k, v, generator=g)
+    logits[:, [7, 11]] = 4.0  # the top two of every row tie
+    cum = -torch.rand(b, k, generator=g) * 3.0
+    finished = torch.zeros(b, k, dtype=torch.bool)
+    if k > 1:
+        logits[1] = logits[0]
+        cum[0, :2] = 0.0  # the video's best rows
+        finished[1, :2] = True
+    cum[2, 1:] = NEG
+    hist = torch.randint(4, v, (b, k, max_len), generator=g)
+    hist[:, :, t:] = PAD
+    carry = dict(
+        h=[torch.zeros(b * k, hd)], c=[torch.zeros(b * k, hd)],
+        tok=hist[:, :, t - 1].clone(), cum=cum, finished=finished,
+        lengths=torch.full((b, k), t, dtype=torch.long), hist=hist,
+        reg_score=torch.tensor([NEG, -2.5, NEG]),
+        reg_tokens=torch.randint(4, v, (b, max_len), generator=g),
+    )
+    return carry, logits, torch.randn(b * k, hd, generator=g), torch.randn(b * k, hd, generator=g)
+
+
+LANES_CASES = [dict(kind="beam", k=k, lp=lp, eos=eos) for k in (1, 5, 8) for lp in (0.0, 0.6)
+               for eos in (0.0, 4.0)] + [dict(kind="ties", k=k, lp=0.6, eos=0.0) for k in (1, 5, 8)]
+
+
+@pytest.mark.parametrize("case", LANES_CASES, ids=[
+    f"{c['kind']}_k{c['k']}_lp{c['lp']}" + ("_eos" if c["eos"] else "") for c in LANES_CASES])
+def test_lanes_select_plain_equals_the_grouped_tail(setup, case):
+    """The lanes step's plain version (`lanes_select_plain` on
+    `logits_topk`'s candidates) against the grouped tail, which forms its
+    candidates from the whole log-softmax and shares the merge and the
+    reorder: tokens equal, scores within 1e-5. "beam": `beam_search` on
+    seeded weights (EOS raised by 1, or by 5: captions that end at the
+    first steps, so finished rows and the register are live), return_all;
+    "ties": one step with planted ties (`_planted_step`), where the lower
+    flat index wins: of two equal candidates the one of row 0."""
+    from controllable_xgating_torch.infer.greedy import mask_special_tokens
+    from controllable_xgating_torch.ops.kernels.topk_tail import (
+        lanes_select_plain,
+        logits_topk,
+        merge_survivors,
+        reorder_beams,
+        topk,
+    )
+
+    _, tp, _, t_in = setup
+    k, lp = case["k"], case["lp"]
+    if case["kind"] == "beam":
+        params = _forced_eos(tp, case["eos"])
+        run = lambda m: t_beam.make_beam_caption_fn(
+            k, MAX_POS, MAX_LEN, length_penalty=lp, fused=True, topk_mode=m, early_stop=False,
+            return_all=True)(params, *t_in)
+        got, want = run("lanes"), run("grouped")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+        return
+    v = tp.decoder.w_out.shape[1]
+    carry, logits, h_new, c_new = _planted_step(v, k)
+    b, t = carry["cum"].shape[0], 2
+    got = lanes_select_plain({**carry, "hist": carry["hist"].clone()}, t,
+                             *logits_topk(logits, torch.eye(v), torch.zeros(v), k), h_new, c_new,
+                             lp)
+    fin_col = carry["finished"].reshape(b * k)[:, None]
+    cont = torch.where(torch.arange(v) == PAD, 0.0, NEG)
+    logp = torch.log_softmax(mask_special_tokens(logits), -1)
+    cand = carry["cum"].reshape(b * k)[:, None] + torch.where(fin_col, cont, logp)
+    want = reorder_beams(carry, t, *merge_survivors(*topk(cand, k), k), [h_new], [c_new], lp)
+    for name in ("tok", "finished", "lengths", "hist", "reg_tokens", "h", "c"):
+        a, w = (got[name], want[name]) if name not in ("h", "c") else (got[name][0], want[name][0])
+        assert torch.equal(a, w), name
+    for name in ("cum", "reg_score"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-5, atol=1e-5)
+    assert got["tok"][0, 0] == 7 and got["tok"][2, 0] == 7  # the lower of two tied ids
+    if k > 1:
+        # video 0's four best candidates tie in pairs: row 0's words 7 and
+        # 11, then row 1's, in flat order
+        assert torch.equal(got["h"][0][:4], h_new[[0, 0, 1, 1]])
+        assert got["tok"][0, :4].tolist() == [7, 11, 7, 11]

@@ -331,6 +331,58 @@ def test_every_call_after_a_capture_replays_its_setup(dev, policy):
     assert all(torch.equal(o, outs[0]) for o in outs[1:4]) and torch.equal(outs[5], outs[4])
 
 
+# device kernels a step of the lanes beam at MSR-VTT widths under bf16: the
+# embedding gather, K3's two operand copies and its three kernels (the last
+# of which writes the top-K kernels' h operand), K4's chunk and the step's
+# selection
+LANES_STEP_KERNELS = 8
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_lanes_beam_chunks_launch_few_kernels_a_step(dev, policy, tmp_path):
+    """A warm beam-5 `beam_search` at MSR-VTT widths (Hd, embed and
+    attention 512, vocab 10000, 256 videos of 26 frames, no frame mask, as
+    the benchmark's cell calls it), profiled: each graph launch's device
+    kernels (a kernel carries the correlation id of the `cudaGraphLaunch`
+    that started it in the profiler's trace) are, in order, the prologue,
+    7 chunks of CHUNK steps and the epilogue; every chunk launches at most
+    LANES_STEP_KERNELS kernels a step and its done flag (one reduction);
+    copies and sets are not kernels."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from controllable_xgating_torch.infer.beam import beam_search
+    from controllable_xgating_torch.infer.graphs import CHUNK
+
+    p = model(dev, **{"model.app_dim": 1536, "model.motion_dim": 1024, "model.hidden_dim": 512,
+                      "model.embed_dim": 512, "model.attn_dim": 512, "model.pos_embed_dim": 512,
+                      "model.vocab_size": 10000, "model.num_frames": 26})
+    gd = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(256, 26, 1536, generator=gd, device=dev),
+         torch.randn(256, 26, 1024, generator=gd, device=dev), None)
+    with precision(policy):
+        ctx, summary = contexts([p], x)[0]
+        run = lambda: beam_search(p.decoder, ctx, summary, 5, 28, fused=True)
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    corr = lambda e: (e.get("args") or {}).get("correlation")
+    launches = [corr(e) for e in sorted(events, key=lambda e: e.get("ts", 0))
+                if e.get("ph") == "X" and e.get("name") == "cudaGraphLaunch"]
+    per_graph = [sum(e.get("cat") == "kernel" and corr(e) == c for e in events) for c in launches]
+    chunks = per_graph[1:-1]
+    print(f"{policy}: kernels a graph launch {per_graph}: {chunks[0]} a chunk of {CHUNK} steps, "
+          f"{(chunks[0] - 1) / CHUNK} a step beside the done flag")
+    assert len(per_graph) == 9 and len(set(chunks)) == 1, per_graph
+    assert 0 < chunks[0] <= LANES_STEP_KERNELS * CHUNK + 1, per_graph
+
+
 def test_a_failed_capture_raises_and_caches_nothing(dev, monkeypatch):
     from controllable_xgating_torch.infer import graphs
 

@@ -172,9 +172,9 @@ def test_attn_lstm_kernel_redesign(dev, policy, r, hd, t):
 
 def planted_tail(dev, r, v, seed=2, hd=512):
     """(h, w, b, tied rows): logits N(0, 1)-ish, and on every other row
-    four equal winners at columns 127 | 128 (an N-tile edge, and K6's
-    chunk edge under bf16) and CHUNK_COLS - 1 | CHUNK_COLS (K4's vocab
-    chunk edge), where they exist. Their w columns are zero and their bias
+    four equal winners at columns 127 | 128 (an N-tile edge, and K4's and
+    K6's chunk edge under bf16) and CHUNK_COLS - 1 | CHUNK_COLS (K4's vocab
+    chunk edge under f32), where they exist. Their w columns are zero and their bias
     equal, so the logits tie exactly in any summation order."""
     from controllable_xgating_torch.ops.kernels.topk_tail import CHUNK_COLS
 
@@ -421,11 +421,97 @@ def test_topk_tail_kernel_pads_hd(dev, hd):
     assert kernels.launch_counts()["topk_tail"] == 2
 
 
+def beam_carry(dev, videos, k, hd, max_len, t, seed=3):
+    """A lanes beam carry at step t over `videos` videos of k rows: cum
+    drawn below 0, a third of the rows finished (every row of every fifth
+    video), every seventh video at its first step (row 0 live, the rest at
+    -1e30), video 1's rows 0 and 1 equal in cum (so that with equal h rows
+    their candidates tie); lengths, the history before t, the register
+    drawn; and the step's new state h_new, c_new [videos k, hd]."""
+    from controllable_xgating_torch.data.vocab import PAD
+    from controllable_xgating_torch.ops.kernels.topk_tail import NEG
+
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    r = videos * k
+    cum = -torch.rand(videos, k, generator=gd, device=dev) * 20.0
+    finished = torch.rand(videos, k, generator=gd, device=dev) < 0.33
+    finished[::5] = True
+    cum[::7, 1:] = NEG
+    finished[::7] = False
+    if k > 1:
+        cum[1, 1] = cum[1, 0]
+    hist = torch.randint(4, 10000, (videos, k, max_len), generator=gd, device=dev)
+    hist[:, :, t:] = PAD
+    reg_score = torch.where(torch.rand(videos, generator=gd, device=dev) < 0.5,
+                            -torch.rand(videos, generator=gd, device=dev) * 30.0,
+                            torch.full((videos,), NEG, device=dev))
+    carry = dict(
+        h=[torch.zeros(r, hd, device=dev)], c=[torch.zeros(r, hd, device=dev)],
+        tok=hist[:, :, t - 1].clone(), cum=cum, finished=finished,
+        lengths=torch.randint(1, t + 1, (videos, k), generator=gd, device=dev), hist=hist,
+        reg_score=reg_score,
+        reg_tokens=torch.randint(4, 10000, (videos, max_len), generator=gd, device=dev),
+    )
+    return carry, torch.randn(r, hd, generator=gd, device=dev), torch.randn(r, hd, generator=gd,
+                                                                            device=dev)
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between f32 a and b
+    of the same signs."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [512, 1024])
+@pytest.mark.parametrize("lp", [0.0, 0.6])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_lanes_beam_step_kernel_equals_its_plain_version(dev, policy, hd, lp, k):
+    """The lanes beam step on the card (the chunk kernel, then
+    beam_select_kernel writing the carry in place) against its plain
+    version `lanes_select_plain` on K4's own candidates (`logits_topk`:
+    the same chunk kernel and the same per-row merge), at ~1280 rows
+    (1280 // k videos), V 10000, Hd 512 and config 5's 1024, with
+    finished rows, first-step videos and planted ties (equal logits
+    across N-tile and chunk edges on every other row, `planted_tail`;
+    video 1's rows 0 and 1 equal). Every integer output is bit-equal (the
+    emitted words, the history, finished, lengths, the register's tokens),
+    h and c (gathers) and cum exactly equal; the register's score equal,
+    within 1 ulp where lp > 0 (powf)."""
+    from controllable_xgating_torch.ops.kernels.topk_tail import (
+        lanes_beam_step,
+        lanes_select_plain,
+        logits_topk,
+        topk_tail_weights,
+    )
+
+    videos, t, block_unk = 1280 // k, 5, k % 2 == 0
+    h, w, b, _ = planted_tail(dev, videos * k, 10000, hd=hd)
+    carry, h_new, c_new = beam_carry(dev, videos, k, hd, 28, t)
+    if k > 1:
+        h[k + 1] = h[k]  # video 1's rows 0 and 1: equal logits
+    copy = lambda: {n: ([x.clone() for x in v] if isinstance(v, list) else v.clone())
+                    for n, v in carry.items()}
+    with precision(policy):
+        w_op = topk_tail_weights(w)
+        got = lanes_beam_step(h, w, b, w_op, block_unk, copy(), t, h_new, c_new, lp)
+        assert kernels.launch_counts()["topk_tail"] == 1
+        want = lanes_select_plain(copy(), t, *logits_topk(h, w, b, k, block_unk, w_op), h_new,
+                                  c_new, lp)
+    torch.cuda.synchronize()
+    for name in ("tok", "hist", "finished", "lengths", "reg_tokens", "cum"):
+        assert torch.equal(got[name], want[name]), name
+    for name in ("h", "c"):
+        assert torch.equal(got[name][0], want[name][0]), name
+    assert ulps(got["reg_score"], want["reg_score"]) <= (1 if lp > 0 else 0)
+    assert bool(got["finished"].any()) and not bool(got["finished"].all())
+
+
 @pytest.mark.parametrize("policy", ["float32", "bfloat16"])
 def test_beam_keeps_the_lanes_tail_at_config_5s_decoder(dev, policy):
     """Config 5 (decoder Hd 1024 = 2 x 512, MSR-VTT widths, vocab 10000):
-    beam 5 launches K4 at every step (lanes_fits(5, 1024): 181,248 B of
-    shared memory under bf16), never the grouped tail, and K3 at Hd 1024.
+    beam 5 launches K4 at every step (lanes_fits(5, 1024)), never the
+    grouped tail, and K3 at Hd 1024.
     Under f32 >= 98% of its beams equal the grouped tail's through the
     same K3, with scores within the f32 bound (the two project in another
     sum order; under bf16 K4's bf16 projection and the grouped tail's

@@ -4,9 +4,9 @@ Marked `gpu`: every test skips without a CUDA device. The widths are
 `configs/msrvtt.json`'s with vocab 10000 and 35 POS tags (the JAX bench's
 MSR-VTT sizes), the weights random and seeded, the inputs 256 seeded
 videos of 26 frames, half of them padded in time. At these sizes K4 merges
-20 vocab chunks, K3 and K4 run 20 row tiles and K5 takes the step's
-[8640, 10000] logits, which the narrow captioners of the other files
-never reach; the decode loops replay CUDA graphs captured at these
+79 vocab chunks under bf16 (20 under f32), K3 runs 20 row tiles and K4
+10, and K5 takes the step's [8640, 10000] logits, which the narrow
+captioners of the other files never reach; the decode loops replay CUDA graphs captured at these
 shapes and are held against their eager loops. Bounds: the kernel path's
 captions equal the plain path's on at least 98% of the videos under f32
 (the kernels sum in another order, so near-ties of random weights flip
